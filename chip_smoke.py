@@ -7,21 +7,28 @@ NVIDIA GPU.
 Phases, one line each (any failure exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi), torch/CUDA;
-2. build    — nvcc-builds the force_free screen kernels from the
-              checkout's sources into build/torch_ext/;
+2. build    — nvcc-builds the force_free and laplace screen kernels from
+              the checkout's sources into build/torch_ext/ (one nvcc per
+              build, both started together); prints each entry point's
+              registers, shared memory and spills (-Xptxas -v) and the
+              dynamic shared memory of the two candidate-group kernels;
 3. kernels  — each of the four kernels (segmented, structured, tiled,
               universal) against its plain torch twin on the card, on
               262,144-candidate launches over a seeded random cache of
               4 x 262,144 rows, covering all 18 surface ops (universal:
               one launch per op); time per launch, plain time, and the
-              roofline bound of the same work; universal also at the
-              per-op path's launch shape (8,192 rows, the first 502
-              real, the pad rows reading row 0), with the host round
+              roofline bound of the same work; segmented and tiled also
+              on a partial launch (37 live tiles of 512) and on the
+              laplace build (order 2), full and partial; universal also
+              at the per-op path's launch shape (8,192 rows, the first
+              502 real, the pad rows reading row 0), with the host round
               trip of one such launch;
 4. main     — ``python -m pde_engine_tpu_torch --problem force_free
               --max-depth 4 --device cuda`` through ``cli.main``: 7/7
               known solutions, exact depth-1/2 counts, depth-3/4 counts
-              within 1% of the TPU run;
+              within 1% of the TPU run; every segmented and tiled launch
+              timed with CUDA events (summed kernel ms, live rows, and
+              a check that no launched tile is a pad tile);
 5. structured coverage — depth 4 again with ``--batch-size 4096``, which
               takes the structured kernel; every valid key of either run
               must be a key of the other, and a key's verdict may differ
@@ -50,7 +57,10 @@ The launch counts are reset just before each run of phases 4-8 and read
 just after it.  In the kernels line, ``launches`` is each kernel's count
 on its own path: phase 4 (the segmented main path, default batch) for
 segmented, structured and tiled, phase 6 (the per-op path) for
-universal; ``launches_by_phase`` has every phase's counts.  Phase 4
+universal; ``launches_by_phase`` has every phase's counts; for segmented and tiled,
+``path_ms`` and ``live_rows`` are phase 4's summed kernel time and
+launched rows, and ``prev_ms`` the thread-per-candidate kernel's time
+per 262,144-row launch before the redesign (PERF.md).  Phase 4
 takes no structured launch at depth 4 (every contiguous run is shorter
 than a 262,144 superbatch); phase 5 does.  ``bound_ms`` is the larger
 of the bytes the launch must move (each distinct operand row read once,
@@ -63,12 +73,14 @@ kernels, the card line and the result object.  Imports no jax and
 nothing of the JAX package.
 """
 
+import ctypes
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # the port must not need jax or the JAX package: make any import of
 # either fail loudly
@@ -94,6 +106,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 ROW_BYTES = 4 * (120 + 18)  # one cache row: screen jets + fingerprint jets
 OUT_BYTES = 4 * (120 + 18 + 3)  # jets, fingerprint jets, packed verdicts
+PARTIAL_TILES = 37  # live tiles of the partial segmented / tiled launches
+# ms per 262,144-row launch of the thread-per-candidate segmented and
+# tiled kernels before their redesign (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md, section 6)
+PREV_MS = {"segmented": 0.939, "tiled": 0.783}
+GROUP_KERNELS = ("segmented", "tiled")
 
 
 def fail(msg: str):
@@ -114,10 +132,11 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def compare(out, ref):
+def compare(out, ref, t=15):
     """(packed mismatches, fj mismatches, jets mismatches, max ulp of the
     point's largest coefficient, max abs err) of a kernel output against
-    its reference.  NaN equals NaN; everything else is compared by bits."""
+    its reference (``t`` coefficients per point).  NaN equals NaN;
+    everything else is compared by bits."""
     import numpy as np
     pk, js, fj = (t.cpu().numpy() for t in out)
     rp, rs, rf = (t.cpu().numpy() for t in ref)
@@ -131,8 +150,8 @@ def compare(out, ref):
     bad_s = neq(js, rs)
     ulps = 0.0
     if bad_s.any():
-        x = js.reshape(js.shape[0], -1, 15)
-        y = rs.reshape(rs.shape[0], -1, 15)
+        x = js.reshape(js.shape[0], -1, t)
+        y = rs.reshape(rs.shape[0], -1, t)
         fin = np.isfinite(y)
         big = np.max(np.where(fin, np.abs(y), 0.0), axis=-1, keepdims=True)
         step = np.spacing(big.astype(np.float32)).astype(np.float64)
@@ -150,16 +169,20 @@ def compare(out, ref):
     return bad_p, bad_f, int(bad_s.any(axis=1).sum()), ulps, err
 
 
-def check(name, op_names, rows_per_op, out, ref):
+def check(name, op_names, rows_per_op, out, ref, t=15):
     """Hold one kernel output against its reference, op by op
     (``op_names`` maps op ids to names; ``rows_per_op`` is each row's op
     id)."""
     import numpy as np
+    if any(x.shape[0] != len(rows_per_op) for x in list(out) + list(ref)):
+        fail(f"{name}: {[x.shape[0] for x in out]} rows out, "
+             f"{[x.shape[0] for x in ref]} rows in the reference, "
+             f"{len(rows_per_op)} expected")
     worst_err, worst_ulp, jet_rows = 0.0, 0.0, 0
     for op in np.unique(rows_per_op).tolist():
         sel = np.nonzero(rows_per_op == op)[0]
-        bp, bf, bs, ulp, err = compare([t[sel] for t in out],
-                                       [t[sel] for t in ref])
+        bp, bf, bs, ulp, err = compare([x[sel] for x in out],
+                                       [x[sel] for x in ref], t)
         opn = op_names[op]
         worst_err = max(worst_err, err)
         if bp or bf:
@@ -270,6 +293,12 @@ def phase_kernels(spec, dev):
     torch.cuda.synchronize()
     rows_op = np.repeat(tile_ops_np, 512)
     err, ulp, bad = check("segmented", names, rows_op, out, ref)
+    live = PARTIAL_TILES * 512
+    check(f"segmented[{PARTIAL_TILES} tiles]", names, rows_op[:live],
+          ce.segmented(spec, cache_s, cache_f, ab, tile_ops, sp, fp,
+                       n_live=live),
+          ce.segmented_ref(spec, cache_s, cache_f, ab, tile_ops, sp, fp,
+                           n_live=live))
     ms = time_ms(lambda: ce.segmented(spec, cache_s, cache_f, ab, tile_ops,
                                       sp, fp), 10)
     plain = time_ms(lambda: ce.segmented_ref(spec, cache_s, cache_f, ab,
@@ -327,6 +356,12 @@ def phase_kernels(spec, dev):
     ref = ce.tiled_ref(spec, cache_s, cache_f, *args, sp, fp, SUPER)
     torch.cuda.synchronize()
     err, ulp, bad = check("tiled", names, np.repeat(ops_t, 512), out, ref)
+    check(f"tiled[{PARTIAL_TILES} tiles]", names,
+          np.repeat(ops_t, 512)[:live],
+          ce.tiled(spec, cache_s, cache_f, *args, sp, fp, SUPER,
+                   n_live=live),
+          ce.tiled_ref(spec, cache_s, cache_f, *args, sp, fp, SUPER,
+                       n_live=live))
     ms = time_ms(lambda: ce.tiled(spec, cache_s, cache_f, *args, sp, fp,
                                   SUPER), 10)
     plain = time_ms(lambda: ce.tiled_ref(spec, cache_s, cache_f, *args, sp,
@@ -409,7 +444,159 @@ def phase_kernels(spec, dev):
             f"(max {u:.2f} ulp, exp/log ops only), max abs err {e:.3e}; "
             f"{m:.3f} ms/launch kernel vs {p:.3f} ms plain; bound "
             f"{b_ms:.4f} ms ({b_by}), {b_ms / m:.1%} of it reached")
+    for k in GROUP_KERNELS:
+        say(f"  {k}: {results[k][2]:.4f} ms against {PREV_MS[k]} ms before "
+            f"the redesign ({PREV_MS[k] / results[k][2]:.2f}x); "
+            f"{results[k][2] / results['universal'][2]:.3f} of universal's "
+            "mean (the thread-per-candidate body); partial launches of "
+            f"{PARTIAL_TILES} tiles: 0 packed and 0 fingerprint-jet rows "
+            "differ")
     return results, per_op
+
+
+def phase_laplace(spec, dev):
+    """Phase 3 on the laplace build (order 2, T = 6): segmented and tiled
+    against their plain twins on a full and a partial launch, all 18
+    ops."""
+    import numpy as np
+    import torch
+
+    from pde_engine_tpu_torch.models import load_problem
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    from pde_engine_tpu_torch.parallel.incremental import OP_ORDER
+    from pde_engine_tpu_torch.parallel.search import snap_fp_jets_np
+
+    problem = load_problem("laplace")
+    rng = np.random.default_rng(1)
+    C, T = SUPER, spec.sdim // spec.n_screen
+    s = rng.normal(0.0, 0.5, size=(C, spec.n_screen, T)).astype(np.float32)
+    s[..., 0] = rng.uniform(0.3, 1.5, size=(C, spec.n_screen))
+    f = rng.normal(0.0, 0.5, size=(C, spec.n_fp, 3)).astype(np.float32)
+    f[..., 0] = rng.uniform(0.3, 1.5, size=(C, spec.n_fp))
+    cache_s = torch.from_numpy(s.reshape(C, -1)).to(dev)
+    cache_f = torch.from_numpy(snap_fp_jets_np(f.reshape(C, -1))).to(dev)
+    sp = torch.as_tensor(problem.screen_points, dtype=torch.float32,
+                         device=dev)
+    fp = torch.as_tensor(problem.fingerprint_points, dtype=torch.float32,
+                         device=dev)
+    names = dict(enumerate(OP_ORDER))
+    n_tiles = SUPER // 512
+    ops_t = (np.arange(n_tiles) % len(OP_ORDER)).astype(np.int32)
+    ab = torch.from_numpy(rng.integers(0, C, size=(SUPER, 2),
+                                       dtype=np.int32)).to(dev)
+    kinds = np.where(ops_t < ce.N_UNARY, 0, (np.arange(n_tiles) // 18) % 2)
+    til = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        rng.integers(0, C - 512, size=n_tiles),
+        rng.integers(0, C, size=n_tiles), ops_t * 2 + kinds)]
+    rows_op = np.repeat(ops_t, 512)
+    bad = 0
+    for live in (SUPER, PARTIAL_TILES * 512):
+        seg = (ab, torch.from_numpy(ops_t).to(dev), sp, fp)
+        bad += check(f"laplace segmented[{live} rows]", names, rows_op[:live],
+                     ce.segmented(spec, cache_s, cache_f, *seg, n_live=live),
+                     ce.segmented_ref(spec, cache_s, cache_f, *seg,
+                                      n_live=live), T)[2]
+        tl = (*til, sp, fp, SUPER)
+        bad += check(f"laplace tiled[{live} rows]", names, rows_op[:live],
+                     ce.tiled(spec, cache_s, cache_f, *tl, n_live=live),
+                     ce.tiled_ref(spec, cache_s, cache_f, *tl,
+                                  n_live=live), T)[2]
+    say(f"  laplace build (order 2): segmented and tiled, all 18 ops, "
+        f"{SUPER:,} and {PARTIAL_TILES * 512:,} live rows: 0 packed and 0 "
+        f"fingerprint-jet rows differ, {bad} screen-jet rows differ "
+        "(exp/log ops only)")
+
+
+class LaunchTimer:
+    """CUDA events around every segmented and tiled kernel launch while
+    active, and the live rows of each: ``cuda_engine._library`` hands out
+    a proxy whose two launchers record an event just before and just
+    after the launch (the entry points' checks and output allocations
+    stay outside the window)."""
+
+    LAUNCHERS = {"pde_screen_segmented": ("segmented", 7),
+                 "pde_screen_tiled": ("tiled", 8)}  # kernel, index of n
+
+    def __init__(self):
+        from pde_engine_tpu_torch.parallel import cuda_engine
+        self.ce = cuda_engine
+        self.orig = cuda_engine._library
+        self.events = {k: [] for k in GROUP_KERNELS}
+        self.rows = {k: 0 for k in GROUP_KERNELS}
+
+    def _proxy(self, lib):
+        import torch
+        timer = self
+
+        class Timed:
+            def __getattr__(self, name):
+                fn = getattr(lib, name)
+                if name not in timer.LAUNCHERS:
+                    return fn
+                kernel, n_at = timer.LAUNCHERS[name]
+
+                def timed(*args):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    rc = fn(*args)
+                    e1.record()
+                    timer.events[kernel].append((e0, e1, int(args[n_at])))
+                    timer.rows[kernel] += int(args[n_at])
+                    return rc
+                return timed
+        return Timed()
+
+    def __enter__(self):
+        self.ce._library = lambda spec: self._proxy(self.orig(spec))
+        return self
+
+    def __exit__(self, *exc):
+        self.ce._library = self.orig
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b, _ in ev)
+                for k, ev in self.events.items()}
+
+    def per_launch(self, kernel):
+        """[(live rows, kernel ms)] of each launch, in order."""
+        return [(n, a.elapsed_time(b)) for a, b, n in self.events[kernel]]
+
+
+def ptxas_report(log: str):
+    """{entry point: (registers, static shared bytes, spill store bytes,
+    spill load bytes)} from an nvcc -Xptxas -v log, and the spill bytes
+    of every function."""
+    import re
+    table, spills, entry, props = {}, {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and props:
+            spills[props] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                      r"(?:, (\d+) bytes smem)?", ln)
+        if m and entry:
+            table[entry] = [int(m.group(1)), int(m.group(2) or 0)]
+    out = {}
+    for name in ("segmented", "structured", "tiled", "universal"):
+        mangled = [e for e in table if f"{name}_kernel" in e]
+        if len(mangled) != 1:
+            fail(f"ptxas log has no single entry for {name}_kernel")
+        regs, smem = table[mangled[0]]
+        out[name] = (regs, smem, *spills.get(mangled[0], (0, 0)))
+    return out, spills
 
 
 def run_cli(extra, db_dir):
@@ -596,19 +783,32 @@ def main() -> int:
 
     problem = load_problem("force_free")
     spec = cuda_emit_spec(problem, problem.screen_rtol)
+    lap = load_problem("laplace")
+    spec_l = cuda_emit_spec(lap, lap.screen_rtol)
     t0 = time.time()
-    ce._library(spec)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(ce._library, sp) for sp in (spec, spec_l)]:
+            fut.result()
     build_s = time.time() - t0
-    log = build_log(ce.header_text(spec)).splitlines()
-    regs = [ln.split("Used")[1].split(",")[0].strip() for ln in log
-            if "Used" in ln and "registers" in ln]
-    spills = sorted({ln.strip() for ln in log if "spill stores" in ln})
-    say(f"[2/8] build: {build_s:.1f} s (nvcc sm_90a, -fmad=false); "
-        f"kernels use {', '.join(regs)}; {' | '.join(spills)}")
+    say(f"[2/8] build: {build_s:.1f} s for the force_free and laplace "
+        "libraries together (nvcc sm_90a, -fmad=false, one process each)")
+    for tag, sp in (("force_free", spec), ("laplace", spec_l)):
+        table, spills = ptxas_report(build_log(ce.header_text(sp)))
+        dyn = (ctypes.c_int * 3)()
+        ce._library(sp).pde_screen_group_smem(ctypes.addressof(dyn))
+        say(f"  {tag}: " + "; ".join(
+            f"{k} {r} registers, {sm} B static shared, spills {st}/{ld} B "
+            "(stores/loads)" for k, (r, sm, st, ld) in table.items())
+            + f"; dynamic shared per block: segmented {dyn[0]:,} B, tiled "
+            f"{dyn[1]:,} B; {dyn[2]} lanes per candidate group")
+        spilled = {f: v for f, v in spills.items() if any(v)}
+        if spilled:
+            say(f"  {tag}: functions that spill: {spilled}")
 
     say("[3/8] kernels vs plain torch on the card (262,144-candidate "
         "superbatches, cache of 1,048,576 seeded rows):")
     kres, per_op_launch = phase_kernels(spec, dev)
+    phase_laplace(spec_l, dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         d4, d5, d6, d7, d8 = (os.path.join(tmp, f"p{k}") for k in range(4, 9))
@@ -616,9 +816,11 @@ def main() -> int:
             os.makedirs(d)
         phases = {}
         say("[4/8] main path: force_free --max-depth 4 --device cuda")
-        ce.reset_launch_counts()
-        rep4 = run_cli([], d4)
-        phases["main"] = launches = dict(ce.LAUNCHES)
+        with LaunchTimer() as timer:
+            ce.reset_launch_counts()
+            rep4 = run_cli([], d4)
+            phases["main"] = launches = dict(ce.LAUNCHES)
+        path_ms = timer.ms()
         c4 = check_main(rep4, card)
         disp4 = rep4["dispatches"]
         for k in ("segmented", "tiled"):
@@ -628,6 +830,22 @@ def main() -> int:
         say(f"  7/7 knowns; counts {c4}; dispatches {disp4}; wall "
             f"{rep4['wall_seconds']:.1f} s")
         say(f"  launches (main path): {launches}")
+        lr = rep4["launched_rows"]
+        for k in GROUP_KERNELS:
+            rows, cands, tile_rows = (lr[k][x] for x in (
+                "rows", "candidates", "tile_rows"))
+            if timer.rows[k] != rows or rows != tile_rows or cands > rows:
+                fail(f"{k}: {timer.rows[k]} rows launched, the engine "
+                     f"counts {lr[k]}: a pad tile was launched")
+            say(f"  {k}: {launches[k]} launches, {rows:,} live rows for "
+                f"{cands:,} candidates ({rows - cands:,} pad rows in the "
+                f"last tile of an op segment, no pad tile); kernel "
+                f"{path_ms[k]:.4f} ms summed (CUDA events); per launch "
+                "(rows, ms): " + ", ".join(
+                    f"({n:,}, {ms:.4f})" for n, ms in timer.per_launch(k)))
+        say(f"  segmented + tiled on the main path: "
+            f"{sum(path_ms.values()):.4f} ms of kernel time over "
+            f"{sum(timer.rows.values()):,} live rows")
         say("[5/8] structured coverage: --batch-size 4096")
         ce.reset_launch_counts()
         rep5 = run_cli(["--batch-size", "4096", "--no-report-families"], d5)
@@ -759,6 +977,9 @@ def main() -> int:
             "bound_by": b_by, "library_ms": None})
         if k == "universal":
             kernels[-1]["per_op_launch"] = per_op_launch
+        if k in GROUP_KERNELS:
+            kernels[-1].update(path_ms=path_ms[k], live_rows=timer.rows[k],
+                               prev_ms=PREV_MS[k])
         if counts[own_path[k]] == 0:
             kernels[-1]["note"] = (
                 "not on the default depth-4 path: every contiguous run is "

@@ -1,6 +1,9 @@
 // Host (g++) build of the screen body, for the CPU tests: the same emitted
 // jet algebra and hand-written verdict code the CUDA kernels run, called
-// through ctypes on pre-gathered operand rows.  Build with
+// through ctypes on pre-gathered operand rows, both as one thread per
+// candidate (screen_candidate: structured and universal kernels) and as
+// the candidate group of the segmented and tiled kernels, its warp
+// shuffles emulated in lane order.  Build with
 // g++ -O2 -std=c++17 -ffp-contract=off -fPIC -shared (see
 // pde_engine_tpu_torch/utils/cuda_build.py).
 
@@ -27,6 +30,44 @@ extern "C" void host_screen_rows(int n, const int* ops, const float* a_s,
     screen_candidate(ops[i], a_s + i * SW, a_f + i * FW, b_s + i * SW,
                      b_f + i * FW, spoints, rtol, out_s + i * SW,
                      out_f + i * FW, packed + 3 * i);
+}
+
+// Candidate i as the segmented and tiled kernels screen it: group_lane on
+// each of the JET_G lanes, then the kernels' __shfl_xor_sync butterfly
+// (lane l merges with lane l ^ m, m = 1, 2, 4, ...) and the FNV gather
+// of lane p's three keys for p = 0..F-1, read from lane 0.
+extern "C" void host_screen_rows_grouped(int n, const int* ops,
+                                         const float* a_s, const float* a_f,
+                                         const float* b_s, const float* b_f,
+                                         const float* spoints, float rtol,
+                                         float* out_s, float* out_f,
+                                         uint32_t* packed) {
+  for (long long i = 0; i < n; ++i) {
+    ScreenAcc s[JET_G], s2[JET_G];
+    FpAcc f[JET_G], f2[JET_G];
+    uint32_t q[JET_G][3];
+    for (int lane = 0; lane < JET_G; ++lane) {
+      float px = lane < JET_P ? spoints[2 * lane] : 0.0f;
+      float py = lane < JET_P ? spoints[2 * lane + 1] : 0.0f;
+      group_lane(ops[i], lane, a_s + i * SW, a_f + i * FW, b_s + i * SW,
+                 b_f + i * FW, px, py, out_s + i * SW, out_f + i * FW,
+                 &s[lane], &f[lane], q[lane]);
+    }
+    for (int m = 1; m < JET_G; m <<= 1) {
+      for (int l = 0; l < JET_G; ++l) {
+        s2[l] = screen_merge(s[l], s[l ^ m]);
+        f2[l] = fp_merge(f[l], f[l ^ m]);
+      }
+      for (int l = 0; l < JET_G; ++l) {
+        s[l] = s2[l];
+        f[l] = f2[l];
+      }
+    }
+    uint32_t ha = JET_FNV_A_SEED, hb = JET_FNV_B_SEED;
+    for (int p = 0; p < JET_F; ++p)
+      for (int k = 0; k < 3; ++k) fnv_fold(&ha, &hb, q[p][k]);
+    verdict_finish(s[0], f[0], rtol, ha, hb, packed + 3 * i);
+  }
 }
 
 // The residual alone: u is [n, P, T]; res and scale are [n, P].

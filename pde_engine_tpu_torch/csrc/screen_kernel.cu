@@ -1,6 +1,5 @@
-// Hand-written Hopper screen kernels: one candidate per thread, three
-// operand addressing modes over the device jet cache, one shared body
-// (screen_body.cuh) compiled once.
+// Hand-written Hopper screen kernels: four operand addressing modes over
+// the device jet cache, one shared body (screen_body.cuh).
 //
 // Replaces, in pde_engine_tpu/parallel/pallas_engine.py:
 //   segmented_kernel   <- make_pallas_segmented_kernel (per-row ab_idx,
@@ -15,20 +14,47 @@
 //                         which the JAX kernel leaves to XLA, run fused
 //                         here as in the other three)
 //
-// What bounds it on the H100: the roofline puts the memory side first.
-// Each candidate gathers two 552-byte operand rows (120 screen + 18
-// fingerprint floats) and writes a 552-byte row plus 12 bytes of
-// verdicts, against a few thousand float32 operations of order-4 jet
-// algebra, so bytes / 3.35 TB/s exceeds operations / 67 TFLOP/s (the
-// per-op counts and bounds are printed by chip_smoke.py).  The writes
-// are candidate-major rows, one thread per row, so a warp's stores are
-// uncoalesced (552-byte stride), and the operand gathers are as
-// scattered as ab_idx; nvcc -Xptxas -v for sm_90a reports 79-80
-// registers and no spills.  This first version keeps one point's jet in
-// registers, loops over the points, and writes rows directly (later work
-// can stage rows through shared memory).  Op ids are uniform over a
-// 512-candidate tile (over the whole launch for universal_kernel), hence
-// over every warp, so the op switch does not diverge.
+// What bounds them on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md,
+// from chip_smoke.py and pde_engine_tpu_torch/tools/screen_variants.py).
+// Per candidate the work is two 552-byte operand rows in (120 screen +
+// 18 fingerprint floats for force_free), a 552-byte row plus 12 bytes of
+// verdicts out, and 3,178-9,584 emitted float32 operations: the bytes
+// side of the roofline is the larger (about 0.1 ms per 262,144
+// candidates).  With one thread per candidate a thread writes its rows
+// one float at a time and the 32 lanes of a warp sit a row apart, so
+// every store instruction of the warp touches 32 sectors: those stores
+// set that body's pace (0.90 ms per 262,144 random candidates, 0.20 ms
+// with the stores suppressed; loads from rows kept in L1 save a quarter).
+//
+// segmented_kernel and tiled_kernel are built around that:
+//   - a candidate group: G lanes (JET_G, 8 for P=8, F=6) share one
+//     candidate; lane p runs screen point p and fingerprint point p, and
+//     the group's verdict parts are reduced with warp shuffles;
+//   - staged rows: a block screens 128 candidates of one 512-row tile in
+//     steps of 128 / G; each step's operand rows are copied into shared
+//     memory by neighbouring lanes in 16-byte (screen) and 8-byte
+//     (fingerprint) cp.async chunks, two steps in flight (a two-stage
+//     ring), so the next step's gather overlaps this step's arithmetic;
+//     the copies are cached in L1 (.ca), so a row that many candidates
+//     share is not fetched from one L2 slice by every block at once;
+//     tiled_kernel loads its constant row once per block and fetches the
+//     contiguous run with one TMA bulk copy per step (cp.async.bulk,
+//     completing on an mbarrier);
+//   - staged outputs: the step's output rows are contiguous in out_s /
+//     out_f / packed, and leave shared memory in coalesced 16-byte
+//     stores;
+//   - no pad tiles: the launch covers only the n_live rows the caller
+//     filled (whole 512-row tiles).
+// What bounds the two now is instruction issue for the jet arithmetic:
+// about 0.21 ms per 262,144 random candidates, 0.18 ms with no HBM
+// traffic and no stores (about twice the bytes bound).  ptxas gives them
+// 128 registers (4 blocks of 128 threads per SM) and no spills; asking
+// for 5 blocks (96 registers) did not help.
+// structured_kernel and universal_kernel still run one candidate per
+// thread through screen_candidate, rows read and written in place.  Op
+// ids are uniform over a 512-candidate tile (over the whole launch for
+// structured and universal), hence over every warp, so the op switch
+// does not diverge.
 //
 // Build: nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a
 //        -fmad=false -Xcompiler -fPIC -shared (pde_engine_tpu_torch/utils/
@@ -56,20 +82,6 @@ static __device__ __forceinline__ void screen_rows(
                    out_s + i * SW, out_f + i * FW, packed + 3 * i);
 }
 
-__global__ void segmented_kernel(const float* __restrict__ cache_s,
-                                 const float* __restrict__ cache_f,
-                                 long long cap, const int* __restrict__ ab,
-                                 const int* __restrict__ tile_ops,
-                                 const float* __restrict__ spoints,
-                                 float rtol, int n, float* out_s,
-                                 float* out_f, uint32_t* packed) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int op = tile_ops[i / TILE];
-  screen_rows(op, clamp_row(ab[2 * i], cap), clamp_row(ab[2 * i + 1], cap),
-              cache_s, cache_f, spoints, rtol, i, out_s, out_f, packed);
-}
-
 // big_is_b: candidates (const_uid, big0 + i); otherwise (big0 + i,
 // const_uid).  Unary ops always take the contiguous rows as operand a.
 __global__ void structured_kernel(const float* __restrict__ cache_s,
@@ -84,29 +96,6 @@ __global__ void structured_kernel(const float* __restrict__ cache_s,
   long long rbig = clamp_row((long long)big0 + i, cap);
   long long rc = clamp_row(const_uid, cap);
   bool swap = big_is_b && op >= JET_N_UNARY;
-  screen_rows(op, swap ? rc : rbig, swap ? rbig : rc, cache_s, cache_f,
-              spoints, rtol, i, out_s, out_f, packed);
-}
-
-// opkind[t] = op*2 + kind per 512-tile; kind 1: the contiguous rows are
-// operand b (constant a).  Pad rows of a tile read the rows that follow
-// the run; the caller discards them.
-__global__ void tiled_kernel(const float* __restrict__ cache_s,
-                             const float* __restrict__ cache_f,
-                             long long cap, const int* __restrict__ starts,
-                             const int* __restrict__ const_uid,
-                             const int* __restrict__ opkind,
-                             const float* __restrict__ spoints, float rtol,
-                             int n, float* out_s, float* out_f,
-                             uint32_t* packed) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  long long t = i / TILE;
-  int ok = opkind[t];
-  int op = ok >> 1;
-  long long rbig = clamp_row((long long)starts[t] + (i % TILE), cap);
-  long long rc = clamp_row(const_uid[t], cap);
-  bool swap = (ok & 1) && op >= JET_N_UNARY;
   screen_rows(op, swap ? rc : rbig, swap ? rbig : rc, cache_s, cache_f,
               spoints, rtol, i, out_s, out_f, packed);
 }
@@ -126,6 +115,376 @@ __global__ void universal_kernel(const float* __restrict__ cache_s,
               cache_s, cache_f, spoints, rtol, i, out_s, out_f, packed);
 }
 
+// ---------------------------------------------------------------------------
+// Candidate-group kernels: segmented and tiled
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupThreads = 128;            // threads per block
+constexpr int kStep = kGroupThreads / JET_G;  // candidates per step
+constexpr int kBlockCands = 128;              // candidates per block
+constexpr int kSteps = kBlockCands / kStep;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+static_assert(32 % JET_G == 0, "candidate groups tile a warp");
+static_assert(TILE % kBlockCands == 0, "a block lies in one 512-row tile");
+static_assert(kBlockCands % kStep == 0 && kSteps >= 2, "whole steps");
+static_assert(kStep % 4 == 0, "a step's packed words are whole 16 B");
+static_assert(SW % 4 == 0, "screen rows are whole 16-byte chunks");
+static_assert(FW % 2 == 0, "fingerprint rows are whole 8-byte chunks");
+
+// Shared-row pitch.  Rows are staged at their own width (SW, FW floats),
+// back to back, so that the rows of a contiguous run are one bulk copy
+// and every screen row starts 16-byte aligned (SW * 4 = 480 B for
+// force_free).  Lane l = c*G + p of a warp (candidate c of the warp's
+// 32/G, point p) reads coefficient k of its screen point at word
+// c*SW + p*T + k = (c*P + p)*T + k when G = P, i.e. bank (l*T + k) mod
+// 32: the 32 lanes hit 32 banks whenever T is odd (T = 15 at order 4),
+// and with G > P the active lanes' c*P + p are still distinct.  The
+// fingerprint reads are word 3*(c*F + p) + k, likewise conflict-free.
+// At order 2 (T = 6) the screen reads are 2-way conflicted; no order-2
+// problem is on the main path.
+
+static __device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Cached in L1 as well as L2 (.ca): an operand row that many candidates
+// share (a depth-1 leaf) is then fetched once per SM, not once per block
+// step from one L2 slice.
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// All but the most recent committed group have landed.
+static __device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+static __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
+                                                 unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA bulk copy of `bytes` contiguous bytes into shared memory,
+// completing on `bar`.
+static __device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                                 unsigned bytes,
+                                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+static __device__ __forceinline__ ScreenAcc shfl_xor(ScreenAcc x, int m) {
+  return ScreenAcc{__shfl_xor_sync(kFull, (int)x.any_inform, m) != 0,
+                   __shfl_xor_sync(kFull, (int)x.nonfinite_any, m) != 0,
+                   __shfl_xor_sync(kFull, x.rel_max, m)};
+}
+
+static __device__ __forceinline__ FpAcc shfl_xor(FpAcc x, int m) {
+  return FpAcc{__shfl_xor_sync(kFull, (int)x.fp_fin, m) != 0,
+               __shfl_xor_sync(kFull, (int)x.val_ok, m) != 0,
+               __shfl_xor_sync(kFull, x.grad_max, m)};
+}
+
+// One candidate on the G lanes of its group (lane = its index in the
+// group): the operand rows as/af, bs/bf and the output rows os/of are
+// the candidate's staged rows; the first lane writes its three packed
+// words to pk.
+//
+// The reduction merges lane l with lane l ^ m for m = 1, 2, 4, ..., so
+// the merge order differs from screen_candidate's, and the result does
+// not: any_inform, nonfinite_any, fp_fin and val_ok are ORs and ANDs;
+// rel is never NaN where ok_pt holds (a finite |res| over scale + eps >
+// 0) and is 0 where it does not, so rel_max is the max of non-NaN values;
+// a NaN grad_max may carry another payload, but grad_max only feeds
+// grad_max == 0, false for every NaN.  The FNV folds depend on order
+// (k = probe*3 + coeff): every lane of the group gathers the 3F keys
+// from lanes 0..F-1 with __shfl_sync and folds them in that order.
+static __device__ __forceinline__ void group_screen(
+    int op, int lane, const float* as, const float* af, const float* bs,
+    const float* bf, float px, float py, float rtol, float* os, float* of,
+    uint32_t* pk) {
+  ScreenAcc s;
+  FpAcc f;
+  uint32_t q[3];
+  group_lane(op, lane, as, af, bs, bf, px, py, os, of, &s, &f, q);
+#pragma unroll
+  for (int m = 1; m < JET_G; m <<= 1) {
+    s = screen_merge(s, shfl_xor(s, m));
+    f = fp_merge(f, shfl_xor(f, m));
+  }
+  const int first = (int)(threadIdx.x & 31u) & ~(JET_G - 1);
+  uint32_t ha = JET_FNV_A_SEED, hb = JET_FNV_B_SEED;
+#pragma unroll
+  for (int p = 0; p < JET_F; ++p) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      fnv_fold(&ha, &hb, __shfl_sync(kFull, q[k], first + p));
+  }
+  if (lane == 0) verdict_finish(s, f, rtol, ha, hb, pk);
+}
+
+// The output rows of one step, contiguous in out_s / out_f / packed from
+// candidate i0 on, leave shared memory in 16-byte stores.
+static __device__ __forceinline__ void store_step(
+    long long i0, const float* o_s, const float* o_f, const uint32_t* o_p,
+    float* out_s, float* out_f, uint32_t* packed) {
+  const int tid = threadIdx.x;
+  float4* gs = reinterpret_cast<float4*>(out_s + i0 * SW);
+  const float4* ss = reinterpret_cast<const float4*>(o_s);
+  for (int j = tid; j < kStep * SW / 4; j += kGroupThreads) gs[j] = ss[j];
+  float4* gf = reinterpret_cast<float4*>(out_f + i0 * FW);
+  const float4* sf = reinterpret_cast<const float4*>(o_f);
+  for (int j = tid; j < kStep * FW / 4; j += kGroupThreads) gf[j] = sf[j];
+  uint4* gp = reinterpret_cast<uint4*>(packed + 3 * i0);
+  const uint4* sp = reinterpret_cast<const uint4*>(o_p);
+  for (int j = tid; j < kStep * 3 / 4; j += kGroupThreads) gp[j] = sp[j];
+}
+
+// Shared memory of segmented_kernel, in 4-byte words: a two-stage ring of
+// a and b operand rows (screen, then fingerprint), one step's output
+// rows, and the block's clamped operand row ids.
+constexpr int kSegStageS = 2 * kStep * SW;  // a rows, then b rows
+constexpr int kSegStageF = 2 * kStep * FW;
+constexpr size_t kSegSmem =
+    4 * (size_t)(2 * kSegStageS + 2 * kSegStageF + kStep * SW + kStep * FW +
+                 kStep * 3 + 2 * kBlockCands);
+
+// Mixed ops, one op id per 512-candidate tile, per-row operands ab.
+__global__ void __launch_bounds__(kGroupThreads)
+    segmented_kernel(const float* __restrict__ cache_s,
+                     const float* __restrict__ cache_f, long long cap,
+                     const int* __restrict__ ab,
+                     const int* __restrict__ tile_ops,
+                     const float* __restrict__ spoints, float rtol, int n,
+                     float* __restrict__ out_s, float* __restrict__ out_f,
+                     uint32_t* __restrict__ packed) {
+  extern __shared__ float4 smem4[];
+  float* st_s = reinterpret_cast<float*>(smem4);
+  float* st_f = st_s + 2 * kSegStageS;
+  float* o_s = st_f + 2 * kSegStageF;
+  float* o_f = o_s + kStep * SW;
+  uint32_t* o_p = reinterpret_cast<uint32_t*>(o_f + kStep * FW);
+  int* rows = reinterpret_cast<int*>(o_p + kStep * 3);
+
+  const int tid = threadIdx.x;
+  const long long blk0 = (long long)blockIdx.x * kBlockCands;
+  if (blk0 >= n) return;
+  const int op = tile_ops[blk0 / TILE];
+  const bool binary = op >= JET_N_UNARY;
+  const int n_ops = binary ? 2 : 1;  // operand rows per candidate
+  const int g = tid / JET_G, lane = tid % JET_G;
+  const float px = lane < JET_P ? spoints[2 * lane] : 0.0f;
+  const float py = lane < JET_P ? spoints[2 * lane + 1] : 0.0f;
+
+  for (int j = tid; j < kBlockCands; j += kGroupThreads) {
+    rows[j] = (int)clamp_row(ab[2 * (blk0 + j)], cap);
+    rows[kBlockCands + j] = (int)clamp_row(ab[2 * (blk0 + j) + 1], cap);
+  }
+  __syncthreads();
+
+  // Copy step `step`'s operand rows into ring slot `buf`: neighbouring
+  // threads take neighbouring chunks of a row.
+  auto gather = [&](int step, int buf) {
+    float* ds = st_s + buf * kSegStageS;
+    float* df = st_f + buf * kSegStageF;
+    const int c0 = step * kStep;
+    for (int j = tid; j < n_ops * kStep * (SW / 4); j += kGroupThreads) {
+      const int r = j / (SW / 4), c = j - r * (SW / 4);
+      const int w = r / kStep;
+      const long long row = rows[w * kBlockCands + c0 + (r - w * kStep)];
+      cp_async16(ds + r * SW + 4 * c, cache_s + row * SW + 4 * c);
+    }
+    for (int j = tid; j < n_ops * kStep * (FW / 2); j += kGroupThreads) {
+      const int r = j / (FW / 2), c = j - r * (FW / 2);
+      const int w = r / kStep;
+      const long long row = rows[w * kBlockCands + c0 + (r - w * kStep)];
+      cp_async8(df + r * FW + 2 * c, cache_f + row * FW + 2 * c);
+    }
+  };
+
+  gather(0, 0);
+  cp_async_commit();
+  gather(1, 1);
+  cp_async_commit();
+  for (int step = 0; step < kSteps; ++step) {
+    const int buf = step & 1;
+    cp_async_wait_prev();
+    __syncthreads();
+    const float* as = st_s + buf * kSegStageS + g * SW;
+    const float* af = st_f + buf * kSegStageF + g * FW;
+    group_screen(op, lane, as, af, binary ? as + kStep * SW : as,
+                 binary ? af + kStep * FW : af, px, py, rtol, o_s + g * SW,
+                 o_f + g * FW, o_p + 3 * g);
+    __syncthreads();
+    store_step(blk0 + step * kStep, o_s, o_f, o_p, out_s, out_f, packed);
+    if (step + 2 < kSteps) gather(step + 2, buf);
+    cp_async_commit();  // possibly empty: keeps one group per step
+  }
+}
+
+// Shared memory of tiled_kernel: two mbarriers (16 B), a two-stage ring
+// of the run's rows, the constant row, one step's output rows.
+constexpr int kTilStageS = kStep * SW;
+constexpr int kTilStageF = kStep * FW;
+constexpr int kFW4 = (FW + 3) / 4 * 4;
+constexpr size_t kTilSmem =
+    16 + 4 * (size_t)(2 * kTilStageS + 2 * kTilStageF + SW + kFW4 +
+                      kStep * SW + kStep * FW + kStep * 3);
+
+// opkind[t] = op*2 + kind per 512-tile; kind 1: the contiguous rows are
+// operand b (constant a).  Unary ops always take the run as operand a.
+__global__ void __launch_bounds__(kGroupThreads)
+    tiled_kernel(const float* __restrict__ cache_s,
+                 const float* __restrict__ cache_f, long long cap,
+                 const int* __restrict__ starts,
+                 const int* __restrict__ const_uid,
+                 const int* __restrict__ opkind,
+                 const float* __restrict__ spoints, float rtol, int n,
+                 float* __restrict__ out_s, float* __restrict__ out_f,
+                 uint32_t* __restrict__ packed) {
+  extern __shared__ float4 smem4[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);
+  float* st_s = reinterpret_cast<float*>(smem4 + 1);
+  float* st_f = st_s + 2 * kTilStageS;
+  float* c_s = st_f + 2 * kTilStageF;
+  float* c_f = c_s + SW;
+  float* o_s = c_f + kFW4;
+  float* o_f = o_s + kStep * SW;
+  uint32_t* o_p = reinterpret_cast<uint32_t*>(o_f + kStep * FW);
+
+  const int tid = threadIdx.x;
+  const long long blk0 = (long long)blockIdx.x * kBlockCands;
+  if (blk0 >= n) return;
+  const long long t = blk0 / TILE;
+  const int ok = opkind[t], op = ok >> 1;
+  const bool binary = op >= JET_N_UNARY;
+  const bool swap = (ok & 1) && binary;
+  const long long run0 = (long long)starts[t] + (blk0 % TILE);
+  const int g = tid / JET_G, lane = tid % JET_G;
+  const float px = lane < JET_P ? spoints[2 * lane] : 0.0f;
+  const float py = lane < JET_P ? spoints[2 * lane + 1] : 0.0f;
+
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (binary) {  // the constant row, once per block (in the first group)
+    const long long rc = clamp_row(const_uid[t], cap);
+    for (int j = tid; j < SW / 4; j += kGroupThreads)
+      cp_async16(c_s + 4 * j, cache_s + rc * SW + 4 * j);
+    for (int j = tid; j < FW / 2; j += kGroupThreads)
+      cp_async8(c_f + 2 * j, cache_f + rc * FW + 2 * j);
+  }
+  __syncthreads();
+
+  // Step `step`'s rows of the run into ring slot `buf`: the screen rows in
+  // one bulk copy (per-row copies where the run would leave the cache
+  // and clamps), the fingerprint rows (8-byte aligned only) in 8-byte
+  // chunks.
+  auto fetch = [&](int step, int buf) {
+    const long long r0 = run0 + step * kStep;
+    float* ds = st_s + buf * kTilStageS;
+    float* df = st_f + buf * kTilStageF;
+    if (r0 >= 0 && r0 + kStep <= cap) {
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive_tx(&bars[buf], 4u * kTilStageS);
+        bulk_load(ds, cache_s + r0 * SW, 4u * kTilStageS, &bars[buf]);
+      }
+    } else {
+      for (int j = tid; j < kStep * (SW / 4); j += kGroupThreads) {
+        const int r = j / (SW / 4), c = j - r * (SW / 4);
+        cp_async16(ds + r * SW + 4 * c,
+                   cache_s + clamp_row(r0 + r, cap) * SW + 4 * c);
+      }
+      if (tid == 0) mbar_arrive(&bars[buf]);
+    }
+    for (int j = tid; j < kStep * (FW / 2); j += kGroupThreads) {
+      const int r = j / (FW / 2), c = j - r * (FW / 2);
+      cp_async8(df + r * FW + 2 * c,
+                cache_f + clamp_row(r0 + r, cap) * FW + 2 * c);
+    }
+  };
+
+  fetch(0, 0);
+  cp_async_commit();
+  fetch(1, 1);
+  cp_async_commit();
+  for (int step = 0; step < kSteps; ++step) {
+    const int buf = step & 1;
+    cp_async_wait_prev();
+    mbar_wait(&bars[buf], (unsigned)(step >> 1) & 1u);
+    __syncthreads();
+    const float* rs = st_s + buf * kTilStageS + g * SW;
+    const float* rf = st_f + buf * kTilStageF + g * FW;
+    const float* as = swap ? c_s : rs;
+    const float* af = swap ? c_f : rf;
+    const float* bs = binary ? (swap ? rs : c_s) : as;
+    const float* bf = binary ? (swap ? rf : c_f) : af;
+    group_screen(op, lane, as, af, bs, bf, px, py, rtol, o_s + g * SW,
+                 o_f + g * FW, o_p + 3 * g);
+    __syncthreads();
+    store_step(blk0 + step * kStep, o_s, o_f, o_p, out_s, out_f, packed);
+    if (step + 2 < kSteps) fetch(step + 2, buf);
+    cp_async_commit();
+  }
+}
+
+// Above 48 KB a kernel's dynamic shared memory must be opted into.
+static int allow_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 static const int kThreads = 128;
 
 static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -138,15 +497,30 @@ extern "C" int pde_screen_dims(int* out) {
   return 0;
 }
 
+// Dynamic shared memory per block of segmented_kernel and tiled_kernel,
+// and the lanes per candidate group.
+extern "C" int pde_screen_group_smem(int* out) {
+  out[0] = (int)kSegSmem;
+  out[1] = (int)kTilSmem;
+  out[2] = JET_G;
+  return 0;
+}
+
+// n: the live rows, a multiple of the 512-row tile.
 extern "C" int pde_screen_segmented(const float* cache_s,
                                     const float* cache_f, long long cap,
                                     const int* ab, const int* tile_ops,
                                     const float* spoints, float rtol, int n,
                                     float* out_s, float* out_f,
                                     uint32_t* packed, void* stream) {
-  segmented_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      cache_s, cache_f, cap, ab, tile_ops, spoints, rtol, n, out_s, out_f,
-      packed);
+  if (n % TILE) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int rc = allow_smem((const void*)segmented_kernel, kSegSmem);
+  if (rc) return rc;
+  segmented_kernel<<<n / kBlockCands, kGroupThreads, kSegSmem,
+                     (cudaStream_t)stream>>>(cache_s, cache_f, cap, ab,
+                                             tile_ops, spoints, rtol, n,
+                                             out_s, out_f, packed);
   return (int)cudaGetLastError();
 }
 
@@ -163,15 +537,21 @@ extern "C" int pde_screen_structured(const float* cache_s,
   return (int)cudaGetLastError();
 }
 
+// n: the live rows, a multiple of the 512-row tile.
 extern "C" int pde_screen_tiled(const float* cache_s, const float* cache_f,
                                 long long cap, const int* starts,
                                 const int* const_uid, const int* opkind,
                                 const float* spoints, float rtol, int n,
                                 float* out_s, float* out_f, uint32_t* packed,
                                 void* stream) {
-  tiled_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      cache_s, cache_f, cap, starts, const_uid, opkind, spoints, rtol, n,
-      out_s, out_f, packed);
+  if (n % TILE) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int rc = allow_smem((const void*)tiled_kernel, kTilSmem);
+  if (rc) return rc;
+  tiled_kernel<<<n / kBlockCands, kGroupThreads, kTilSmem,
+                 (cudaStream_t)stream>>>(cache_s, cache_f, cap, starts,
+                                         const_uid, opkind, spoints, rtol, n,
+                                         out_s, out_f, packed);
   return (int)cudaGetLastError();
 }
 

@@ -229,6 +229,11 @@ class DiscoveryEngine:
         self.structured_dispatches = 0  # full-run gather-bypass batches
         self.tiled_dispatches = 0       # per-tile gather-bypass batches
         self.universal_dispatches = 0   # per-op batches
+        # per kernel: [rows launched, candidates among them, rows of the
+        # 512-row tiles that hold a candidate]
+        self.launch_rows: Dict[str, List[int]] = {
+            k: [0, 0, 0] for k in ("segmented", "structured", "tiled",
+                                   "universal")}
         self.device_seconds = 0.0
         self.errors = 0
         self._gray: List[Tuple[Candidate, dict, int]] = []
@@ -840,6 +845,12 @@ class DiscoveryEngine:
     def _use_segmented(self) -> bool:
         return self.config.use_segmented is not False
 
+    def _tally_launch(self, kind: str, rows: int, sizes) -> None:
+        t = self.launch_rows[kind]
+        t[0] += rows
+        t[1] += sum(sizes)
+        t[2] += sum(-(-m // TILE) * TILE for m in sizes)
+
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
@@ -864,6 +875,7 @@ class DiscoveryEngine:
         self.device_seconds += time.perf_counter() - t0
         self.candidates_screened += n
         self.universal_dispatches += 1
+        self._tally_launch("universal", npad, [n])
         return packed, out_s, out_f
 
     def _run_depth_per_op(self, depth: int, max_depth: int,
@@ -948,13 +960,17 @@ class DiscoveryEngine:
         pending = None
 
         def dispatch():
+            """Launch the filled tiles only; their rows index [0, live)."""
             nonlocal ab, tile_ops, segs, fill_tiles
+            live = fill_tiles * TILE
             td = time.perf_counter()
             packed, out_s, out_f = cuda_engine.segmented(
-                spec, self.cache.screen, self.cache.fp, self._dev(ab),
-                self._dev(tile_ops), self._spoints, self._fpoints)
+                spec, self.cache.screen, self.cache.fp, self._dev(ab[:live]),
+                self._dev(tile_ops[:fill_tiles]), self._spoints,
+                self._fpoints, n_live=live)
             st.t_device += time.perf_counter() - td
             self.segmented_dispatches += 1
+            self._tally_launch("segmented", live, [s[2].size for s in segs])
             item = (segs, packed, out_s, out_f)
             ab = np.zeros((SUPER, 2), np.int32)
             tile_ops = np.zeros(n_tiles, np.int32)
@@ -1019,14 +1035,17 @@ class DiscoveryEngine:
         t_fill = 0
 
         def dispatch_tiled():
+            """Launch the filled tiles only; their rows index [0, live)."""
             nonlocal t_starts, t_const, t_opkind, t_segs, t_fill
+            live = t_fill * TILE
             td = time.perf_counter()
             packed, out_s, out_f = cuda_engine.tiled(
                 spec, self.cache.screen, self.cache.fp, self._dev(t_starts),
                 self._dev(t_const), self._dev(t_opkind), self._spoints,
-                self._fpoints, SUPER)
+                self._fpoints, SUPER, n_live=live)
             st.t_device += time.perf_counter() - td
             self.tiled_dispatches += 1
+            self._tally_launch("tiled", live, [s[2].size for s in t_segs])
             item = (t_segs, packed, out_s, out_f)
             t_starts = np.zeros(n_tiles, np.int32)
             t_const = np.zeros(n_tiles, np.int32)
@@ -1078,6 +1097,7 @@ class DiscoveryEngine:
                 OP_INDEX[op_name], self._spoints, self._fpoints, kind, SUPER)
             st.t_device += time.perf_counter() - td
             self.structured_dispatches += 1
+            self._tally_launch("structured", SUPER, [SUPER])
             seg = (op_name, 0, a_u[pos:pos + SUPER],
                    None if b_u is None else b_u[pos:pos + SUPER])
             return ([seg], packed, out_s, out_f)
@@ -1183,6 +1203,13 @@ class DiscoveryEngine:
                 "tiled": self.tiled_dispatches,
                 "universal": self.universal_dispatches}
 
+    def launched_rows(self) -> Dict[str, Dict[str, int]]:
+        """Per kernel: the rows its launches screened, the candidates
+        among them, and the rows of the 512-row tiles that hold a
+        candidate (equal to ``rows`` where no pad tile is launched)."""
+        return {k: dict(zip(("rows", "candidates", "tile_rows"), v))
+                for k, v in self.launch_rows.items()}
+
     # ------------------------------------------------------------------
     # Resume: cache seeding
     # ------------------------------------------------------------------
@@ -1219,12 +1246,13 @@ class DiscoveryEngine:
             if total > self.cache.capacity:
                 self.cache._grow(total)
             counters = (self.candidates_screened, self.segmented_dispatches,
-                        self.universal_dispatches)
+                        self.universal_dispatches,
+                        {k: list(v) for k, v in self.launch_rows.items()})
             self._seed_leaf_rows(n0, total)
             self._replay_composed_rows(n0, total)
             # seeding is not screening work: the run's counters stay its own
             (self.candidates_screened, self.segmented_dispatches,
-             self.universal_dispatches) = counters
+             self.universal_dispatches, self.launch_rows) = counters
         self.cache.n = max(self.cache.n, total)
 
     def _scatter_rows(self, uids: np.ndarray, out_s, out_f):
@@ -1252,9 +1280,9 @@ class DiscoveryEngine:
         (a unique's parents live at strictly lower depths).  The per-op
         path replays each (depth, op) run through ``universal``; the
         segmented path packs each depth's op runs into tile-aligned
-        superbatches for ``segmented``, pad rows repeating the last real
-        row of their run so that their outputs scatter onto that same
-        uid."""
+        superbatches for ``segmented`` and launches their filled tiles
+        only, the pad rows of a run's last tile repeating its last real
+        row so that their outputs scatter onto that same uid."""
         enum = self.enumerator
         idx = np.arange(lo, total, dtype=np.int64)
         composed = idx[np.asarray(enum.u_op[lo:total]) >= 0]
@@ -1314,18 +1342,14 @@ class DiscoveryEngine:
                     t_ops[fill:fill + ntile] = kops[dp]
                     fill += ntile
                     dp += take
-                if fill < n_tiles:  # depth tail: repeat-fill the super
-                    s = fill * TILE
-                    ab[s:] = ab[s - 1]
-                    uids[s:] = uids[s - 1]
-                    t_ops[fill:] = t_ops[fill - 1]
+                live = fill * TILE
                 t0 = time.perf_counter()
                 _, out_s, out_f = cuda_engine.segmented(
                     self._spec, self.cache.screen, self.cache.fp,
-                    self._dev(ab), self._dev(t_ops), self._spoints,
-                    self._fpoints)
+                    self._dev(ab[:live]), self._dev(t_ops[:fill]),
+                    self._spoints, self._fpoints, n_live=live)
                 self.segmented_dispatches += 1
-                self._scatter_rows(uids, out_s, out_f)
+                self._scatter_rows(uids[:live], out_s, out_f)
                 self.device_seconds += time.perf_counter() - t0
             pos = dend
 

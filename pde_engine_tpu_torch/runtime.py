@@ -174,6 +174,7 @@ class DiscoveryRun:
         report["device_seconds"] = self.engine.device_seconds
         report["candidates_screened"] = self.engine.candidates_screened
         report["dispatches"] = self.engine.dispatch_counts()
+        report["launched_rows"] = self.engine.launched_rows()
         paths = write_report_files(report, self.out_dir)
         self.db.update_metadata(
             sum(s.candidates for s in self.engine.stats)

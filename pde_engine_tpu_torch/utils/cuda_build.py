@@ -39,6 +39,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 GXX_FLAGS = ["-O2", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared"]
 
 _lock = threading.Lock()
+_build_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ct.CDLL] = {}
 
 
@@ -77,7 +78,18 @@ def _digest(header_text: str, flags: List[str], tag: str) -> str:
 
 def _build(cmd_head: List[str], flags: List[str], source: str,
            header_text: str, tag: str, lib_name: str) -> str:
+    """Build one library, once per digest; libraries of other digests
+    build at the same time in other threads."""
     out_dir = os.path.join(build_root(), _digest(header_text, flags, tag))
+    with _lock:
+        lock = _build_locks.setdefault(out_dir, threading.Lock())
+    with lock:
+        return _build_locked(cmd_head, flags, source, header_text, out_dir,
+                             lib_name)
+
+
+def _build_locked(cmd_head: List[str], flags: List[str], source: str,
+                  header_text: str, out_dir: str, lib_name: str) -> str:
     so = os.path.join(out_dir, lib_name)
     if os.path.exists(so):
         return so
@@ -107,18 +119,20 @@ def _load(so: str) -> ct.CDLL:
 
 def load_screen_library(header_text: str) -> ct.CDLL:
     """nvcc-build (once per digest) and load the CUDA screen kernels."""
+    so = _build([nvcc_path()], NVCC_FLAGS, "screen_kernel.cu", header_text,
+                "cuda", "libpde_screen.so")
     with _lock:
-        so = _build([nvcc_path()], NVCC_FLAGS, "screen_kernel.cu",
-                    header_text, "cuda", "libpde_screen.so")
         lib = _load(so)
     P, I, F, LL = ct.c_void_p, ct.c_int, ct.c_float, ct.c_longlong
     lib.pde_screen_dims.argtypes = [P]
+    lib.pde_screen_group_smem.argtypes = [P]
     lib.pde_screen_segmented.argtypes = [P, P, LL, P, P, P, F, I, P, P, P, P]
     lib.pde_screen_structured.argtypes = [P, P, LL, I, I, I, I, P, F, I,
                                           P, P, P, P]
     lib.pde_screen_tiled.argtypes = [P, P, LL, P, P, P, P, F, I, P, P, P, P]
     lib.pde_screen_universal.argtypes = [P, P, LL, P, I, P, F, I, P, P, P, P]
-    for fn in (lib.pde_screen_dims, lib.pde_screen_segmented,
+    for fn in (lib.pde_screen_dims, lib.pde_screen_group_smem,
+               lib.pde_screen_segmented,
                lib.pde_screen_structured, lib.pde_screen_tiled,
                lib.pde_screen_universal):
         fn.restype = ct.c_int
@@ -127,15 +141,16 @@ def load_screen_library(header_text: str) -> ct.CDLL:
 
 def load_host_library(header_text: str) -> ct.CDLL:
     """g++-build (once per digest) and load the host screen body."""
+    so = _build(["g++"], GXX_FLAGS, "host_harness.cpp", header_text, "host",
+                "libpde_screen_host.so")
     with _lock:
-        so = _build(["g++"], GXX_FLAGS, "host_harness.cpp", header_text,
-                    "host", "libpde_screen_host.so")
         lib = _load(so)
     P, I, F = ct.c_void_p, ct.c_int, ct.c_float
     lib.host_dims.argtypes = [P]
     lib.host_dims.restype = I
-    lib.host_screen_rows.argtypes = [I, P, P, P, P, P, P, F, P, P, P]
-    lib.host_screen_rows.restype = None
+    for fn in (lib.host_screen_rows, lib.host_screen_rows_grouped):
+        fn.argtypes = [I, P, P, P, P, P, P, F, P, P, P]
+        fn.restype = None
     lib.host_residual.argtypes = [I, P, P, P, P]
     lib.host_residual.restype = None
     return lib

@@ -43,7 +43,16 @@ positions equal on at least 99.9% of rows.
 The CUDA kernels themselves are held bit-equal to these references on the
 GPU (``test_cuda_kernels_match_ref`` below, run there with
 ``python -m pytest tests/test_torch_kernels.py -m gpu --noconftest``;
-the suite's conftest imports jax, which the GPU machine does not have).
+the suite's conftest imports jax, which the GPU machine does not have),
+on full launches and on launches of fewer live tiles than the batch.
+
+On the CPU, the host build of the kernels' body (``csrc/host_harness.cpp``,
+g++) runs the segmented and tiled kernels' candidate group with its warp
+shuffles emulated in lane order (``host_screen_rows_grouped``); it is
+held bit for bit equal to the one-thread-per-candidate body
+(``host_screen_rows``) and, like that body, to the plain torch twin, for
+all 18 ops on force_free (order 4) and laplace (order 2), on rows whose
+jets are random, non-finite, all zero or constant.
 """
 
 import os
@@ -373,6 +382,13 @@ def test_cuda_kernels_match_ref():
         0, C, size=nt).astype(np.int32)).to(dev)
     a = (starts, const, opkind, tsp, tfp, N)
     outs.append((ce.tiled(spec, ts, tf, *a), ce.tiled_ref(spec, ts, tf, *a)))
+    # partial launches: the first 15 of 18 tiles live
+    live = N - 3 * TILE
+    outs.append((ce.segmented(spec, ts, tf, *args, n_live=live),
+                 ce.segmented_ref(spec, ts, tf, *args, n_live=live)))
+    outs.append((ce.tiled(spec, ts, tf, *a, n_live=live),
+                 ce.tiled_ref(spec, ts, tf, *a, n_live=live)))
+    assert all(x.shape[0] == live for x in outs[-1][0] + outs[-2][0])
     # universal: one op per launch over a ragged batch (no tile multiple)
     ab_u = torch.from_numpy(ab[:N - 100]).to(dev)
     for op in range(len(OP_ORDER)):
@@ -389,3 +405,144 @@ def test_cuda_kernels_match_ref():
             else:
                 same = x == y
             assert bool(same.all())
+
+
+@pytest.mark.parametrize("kernel", ["segmented", "tiled"])
+def test_live_rows_are_a_prefix(setup, kernel):
+    """``n_live`` (whole tiles) screens and returns exactly the first
+    ``n_live`` rows of the full launch, through the plain twin and the
+    entry point on CPU tensors; anything but a tile multiple in [0, n]
+    raises."""
+    x, spec = setup["x"], setup["spec"]
+    ts, tf, tsp, tfp = _torch_args(setup)
+    if kernel == "segmented":
+        args = (torch.from_numpy(x["seg_ab"]), torch.from_numpy(x["seg_ops"]),
+                tsp, tfp)
+        ref, entry = ce.segmented_ref, ce.segmented
+    else:
+        args = (torch.from_numpy(x["til_starts"]),
+                torch.from_numpy(x["til_const"]),
+                torch.from_numpy(x["til_opkind"]), tsp, tfp,
+                len(x["til_opkind"]) * TILE)
+        ref, entry = ce.tiled_ref, ce.tiled
+    full = ref(spec, ts, tf, *args)
+    live = 5 * TILE
+    for fn in (ref, entry):
+        part = fn(spec, ts, tf, *args, n_live=live)
+        for p, f in zip(part, full):
+            assert p.shape[0] == live
+            assert torch.equal(p.view(torch.int32), f[:live].view(torch.int32))
+        assert all(t.shape[0] == 0 for t in fn(spec, ts, tf, *args, n_live=0))
+    for bad in (live + 1, -TILE, full[0].shape[0] + TILE):
+        with pytest.raises(ValueError):
+            ref(spec, ts, tf, *args, n_live=bad)
+
+
+HOST_ROWS_PER_OP = 240
+
+
+@pytest.fixture(scope="module", params=["force_free", "laplace"])
+def host_rows(request):
+    """Seeded operand rows screened by the host build of the body, one
+    thread per candidate and as a candidate group, and by the plain torch
+    twin.  Row i % 8 of each op: 0-3 random, 4 a non-finite a row, 5 all
+    zero a and b rows, 6 constant a and b rows (only the value
+    coefficients set), 7 an infinite b value."""
+    import shutil
+
+    from pde_engine_tpu_torch.utils.cuda_build import load_host_library
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    p = load_problem(request.param)
+    spec = cuda_emit_spec(p, p.screen_rtol)
+    lib = load_host_library(ce.header_text(spec))
+    T = spec.sdim // spec.n_screen
+    rng = np.random.default_rng(3)
+    n = HOST_ROWS_PER_OP * len(OP_ORDER)
+    a_s, b_s = (rng.normal(size=(n, spec.n_screen, T)).astype(np.float32)
+                for _ in range(2))
+    a_f, b_f = (rng.normal(size=(n, spec.n_fp, 3)).astype(np.float32)
+                for _ in range(2))
+    kind = np.arange(n) % 8
+    a_s[kind == 4, 0, T - 1] = np.nan
+    a_f[kind == 4, 1, 0] = np.inf
+    for arr in (a_s, b_s, a_f, b_f):
+        arr[kind == 5] = 0.0
+        arr[kind == 6, :, 1:] = 0.0
+    b_s[kind == 7, 2, 0] = -np.inf
+    b_f[kind == 7, 0, 0] = np.inf
+    a_s, b_s = (np.ascontiguousarray(v.reshape(n, -1)) for v in (a_s, b_s))
+    a_f, b_f = (snap_fp_jets_np(v.reshape(n, -1)) for v in (a_f, b_f))
+    ops = np.repeat(np.arange(len(OP_ORDER), dtype=np.int32),
+                    HOST_ROWS_PER_OP)
+    sp = np.ascontiguousarray(p.screen_points, np.float32)
+    outs = {}
+    for name in ("host_screen_rows", "host_screen_rows_grouped"):
+        o = (np.zeros((n, 3), np.uint32), np.zeros((n, spec.sdim), np.float32),
+             np.zeros((n, spec.fdim), np.float32))
+        getattr(lib, name)(n, ops.ctypes.data, a_s.ctypes.data,
+                           a_f.ctypes.data, b_s.ctypes.data, b_f.ctypes.data,
+                           sp.ctypes.data, float(spec.screen_rtol),
+                           o[1].ctypes.data, o[2].ctypes.data,
+                           o[0].ctypes.data)
+        outs[name] = o
+    ab = torch.from_numpy(np.stack([np.arange(n), np.arange(n) + n], 1)
+                          .astype(np.int32))
+    plain = universal_ref(spec.order, spec.residual_key, spec.screen_rtol,
+                          spec.n_screen, spec.n_fp,
+                          torch.from_numpy(np.concatenate([a_s, b_s])),
+                          torch.from_numpy(np.concatenate([a_f, b_f])), ab,
+                          torch.from_numpy(ops.astype(np.int64)),
+                          torch.from_numpy(sp))
+    outs["plain"] = (plain[0].numpy().view(np.uint32), plain[1].numpy(),
+                     plain[2].numpy())
+    flags = outs["plain"][0][:, 2] & 15
+    # the special rows reach every flag: screen pass, non-finite, constant
+    assert (flags & 1).any() and (flags & 2).any() and (flags & 4).any()
+    return spec, ops, outs
+
+
+def _bits_equal(x, y):
+    return ((x.view(np.uint32) == y.view(np.uint32))
+            | (np.isnan(x) & np.isnan(y)))
+
+
+def _hold_to_plain(spec, op_name, got, plain, m):
+    """Packed words and snapped fingerprint jets bit-equal to the plain
+    twin; screen jets bit-equal outside exp/log, else within 32 ulp of
+    each point's largest coefficient (test_torch_emit.py says why)."""
+    assert np.array_equal(got[0][m], plain[0][m])
+    assert _bits_equal(got[2][m], plain[2][m]).all()
+    if op_name not in EXP_LOG:
+        assert _bits_equal(got[1][m], plain[1][m]).all()
+        return
+    T = spec.sdim // spec.n_screen
+    x = got[1][m].reshape(-1, spec.n_screen, T).astype(np.float64)
+    y = plain[1][m].reshape(-1, spec.n_screen, T).astype(np.float64)
+    fin = np.isfinite(y)
+    assert (np.isfinite(x) == fin).all()
+    big = np.max(np.where(fin, np.abs(y), 0.0), axis=-1, keepdims=True)
+    ulp = np.spacing(big.astype(np.float32)).astype(np.float64)
+    assert (np.where(fin, np.abs(x - y), 0.0) <= 32 * ulp).all()
+
+
+@pytest.mark.parametrize("op_name", OP_ORDER)
+def test_host_group_body_matches(host_rows, op_name):
+    """The candidate group (the segmented and tiled kernels' body) is bit
+    for bit the one-thread-per-candidate body, and holds to the plain
+    twin as that body does."""
+    spec, ops, outs = host_rows
+    m = ops == OP_INDEX[op_name]
+    grouped, single = outs["host_screen_rows_grouped"], outs["host_screen_rows"]
+    for g, s1 in zip(grouped, single):
+        assert np.array_equal(g[m].view(np.uint32), s1[m].view(np.uint32))
+    _hold_to_plain(spec, op_name, grouped, outs["plain"], m)
+
+
+@pytest.mark.parametrize("op_name", OP_ORDER)
+def test_host_candidate_body_matches_plain(host_rows, op_name):
+    """``screen_candidate``, now a loop over the per-point pieces, still
+    equals the plain twin on both problems' specs and the special rows."""
+    spec, ops, outs = host_rows
+    _hold_to_plain(spec, op_name, outs["host_screen_rows"], outs["plain"],
+                   ops == OP_INDEX[op_name])
