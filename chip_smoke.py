@@ -18,8 +18,10 @@ Phases, one line each (any failure exits non-zero):
               4 x 262,144 rows, covering all 18 surface ops (universal:
               one launch per op); time per launch, plain time, and the
               roofline bound of the same work; segmented and tiled also
-              on a partial launch (37 live tiles of 512) and on the
-              laplace build (order 2), full and partial; universal also
+              on a partial launch (segmented: 19,021 rows in op runs of
+              1-199 rows, so runs end inside warps; tiled: 37 tiles of
+              512) and on the laplace build (order 2), full and
+              partial; universal also
               at the per-op path's launch shape (8,192 rows, the first
               502 real, the pad rows reading row 0), with the host round
               trip of one such launch;
@@ -27,8 +29,9 @@ Phases, one line each (any failure exits non-zero):
               --max-depth 4 --device cuda`` through ``cli.main``: 7/7
               known solutions, exact depth-1/2 counts, depth-3/4 counts
               within 1% of the TPU run; every segmented and tiled launch
-              timed with CUDA events (summed kernel ms, live rows, and
-              a check that no launched tile is a pad tile);
+              timed with CUDA events (summed kernel ms and launched
+              rows; segmented must launch exactly its candidates, tiled
+              exactly the 512-row tiles that hold one);
 5. structured coverage — depth 4 again with ``--batch-size 4096``, which
               takes the structured kernel; every valid key of either run
               must be a key of the other, and a key's verdict may differ
@@ -59,8 +62,7 @@ on its own path: phase 4 (the segmented main path, default batch) for
 segmented, structured and tiled, phase 6 (the per-op path) for
 universal; ``launches_by_phase`` has every phase's counts; for segmented and tiled,
 ``path_ms`` and ``live_rows`` are phase 4's summed kernel time and
-launched rows, and ``prev_ms`` the thread-per-candidate kernel's time
-per 262,144-row launch before the redesign (PERF.md).  Phase 4
+launched rows.  Phase 4
 takes no structured launch at depth 4 (every contiguous run is shorter
 than a 262,144 superbatch); phase 5 does.  ``bound_ms`` is the larger
 of the bytes the launch must move (each distinct operand row read once,
@@ -106,11 +108,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 ROW_BYTES = 4 * (120 + 18)  # one cache row: screen jets + fingerprint jets
 OUT_BYTES = 4 * (120 + 18 + 3)  # jets, fingerprint jets, packed verdicts
-PARTIAL_TILES = 37  # live tiles of the partial segmented / tiled launches
-# ms per 262,144-row launch of the thread-per-candidate segmented and
-# tiled kernels before their redesign (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md, section 6)
-PREV_MS = {"segmented": 0.939, "tiled": 0.783}
+PARTIAL_TILES = 37  # tiles of the partial tiled launch
+PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
 
 
@@ -240,6 +239,14 @@ def bound(n: int, rows, binary_rows, index_bytes: int, ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ragged_ops(rng, n: int, n_ops: int):
+    """Per-row op ids of ``n`` rows in runs of 1-199 rows, ops in turn:
+    the runs end at any lane of a warp."""
+    import numpy as np
+    runs = rng.integers(1, 200, size=n)
+    return np.repeat(np.arange(n) % n_ops, runs)[:n].astype(np.int32)
+
+
 def phase_kernels(spec, dev):
     """Phase 3: every kernel against its plain version on the card."""
     import numpy as np
@@ -283,30 +290,27 @@ def phase_kernels(spec, dev):
     def binary_b(b_rows, row_ops):
         return b_rows[row_ops >= unary]
 
-    # segmented: random operand rows, tile t runs op t % 18
+    # segmented: random operand rows, rows [512t, 512t + 512) run op
+    # t % 18; the partial launch in ragged op runs
     ab = torch.from_numpy(rng.integers(0, C, size=(SUPER, 2),
                                        dtype=np.int32)).to(dev)
-    tile_ops_np = (np.arange(n_tiles) % n_ops).astype(np.int32)
-    tile_ops = torch.from_numpy(tile_ops_np).to(dev)
-    out = ce.segmented(spec, cache_s, cache_f, ab, tile_ops, sp, fp)
-    ref = ce.segmented_ref(spec, cache_s, cache_f, ab, tile_ops, sp, fp)
+    rows_op = np.repeat(np.arange(n_tiles) % n_ops, 512).astype(np.int32)
+    row_ops = torch.from_numpy(rows_op).to(dev)
+    out = ce.segmented(spec, cache_s, cache_f, ab, row_ops, sp, fp)
+    ref = ce.segmented_ref(spec, cache_s, cache_f, ab, row_ops, sp, fp)
     torch.cuda.synchronize()
-    rows_op = np.repeat(tile_ops_np, 512)
     err, ulp, bad = check("segmented", names, rows_op, out, ref)
-    live = PARTIAL_TILES * 512
-    check(f"segmented[{PARTIAL_TILES} tiles]", names, rows_op[:live],
-          ce.segmented(spec, cache_s, cache_f, ab, tile_ops, sp, fp,
-                       n_live=live),
-          ce.segmented_ref(spec, cache_s, cache_f, ab, tile_ops, sp, fp,
-                           n_live=live))
-    ms = time_ms(lambda: ce.segmented(spec, cache_s, cache_f, ab, tile_ops,
+    rag = ragged_ops(rng, PARTIAL_ROWS, n_ops)
+    part = (ab[:PARTIAL_ROWS], torch.from_numpy(rag).to(dev), sp, fp)
+    check(f"segmented[{PARTIAL_ROWS} rows, ragged ops]", names, rag,
+          ce.segmented(spec, cache_s, cache_f, *part),
+          ce.segmented_ref(spec, cache_s, cache_f, *part))
+    ms = time_ms(lambda: ce.segmented(spec, cache_s, cache_f, ab, row_ops,
                                       sp, fp), 10)
     plain = time_ms(lambda: ce.segmented_ref(spec, cache_s, cache_f, ab,
-                                             tile_ops, sp, fp), 2)
-    row_ops_t = torch.from_numpy(rows_op).to(dev)
-    b_ms, b_by = bound(SUPER, ab[:, 0], binary_b(ab[:, 1], row_ops_t),
-                       SUPER * 8 + n_tiles * 4,
-                       float(ops_of[row_ops_t.long()].sum()))
+                                             row_ops, sp, fp), 2)
+    b_ms, b_by = bound(SUPER, ab[:, 0], binary_b(ab[:, 1], row_ops),
+                       SUPER * 12, float(ops_of[row_ops.long()].sum()))
     results["segmented"] = (err, ulp, ms, plain, SUPER, bad, b_ms, b_by)
 
     # structured: every op, both kinds for binary ops; timed on two ops
@@ -356,12 +360,11 @@ def phase_kernels(spec, dev):
     ref = ce.tiled_ref(spec, cache_s, cache_f, *args, sp, fp, SUPER)
     torch.cuda.synchronize()
     err, ulp, bad = check("tiled", names, np.repeat(ops_t, 512), out, ref)
+    part = (*(a[:PARTIAL_TILES] for a in args), sp, fp, PARTIAL_TILES * 512)
     check(f"tiled[{PARTIAL_TILES} tiles]", names,
-          np.repeat(ops_t, 512)[:live],
-          ce.tiled(spec, cache_s, cache_f, *args, sp, fp, SUPER,
-                   n_live=live),
-          ce.tiled_ref(spec, cache_s, cache_f, *args, sp, fp, SUPER,
-                       n_live=live))
+          np.repeat(ops_t[:PARTIAL_TILES], 512),
+          ce.tiled(spec, cache_s, cache_f, *part),
+          ce.tiled_ref(spec, cache_s, cache_f, *part))
     ms = time_ms(lambda: ce.tiled(spec, cache_s, cache_f, *args, sp, fp,
                                   SUPER), 10)
     plain = time_ms(lambda: ce.tiled_ref(spec, cache_s, cache_f, *args, sp,
@@ -445,12 +448,10 @@ def phase_kernels(spec, dev):
             f"{m:.3f} ms/launch kernel vs {p:.3f} ms plain; bound "
             f"{b_ms:.4f} ms ({b_by}), {b_ms / m:.1%} of it reached")
     for k in GROUP_KERNELS:
-        say(f"  {k}: {results[k][2]:.4f} ms against {PREV_MS[k]} ms before "
-            f"the redesign ({PREV_MS[k] / results[k][2]:.2f}x); "
+        say(f"  {k}: {results[k][2]:.4f} ms, "
             f"{results[k][2] / results['universal'][2]:.3f} of universal's "
-            "mean (the thread-per-candidate body); partial launches of "
-            f"{PARTIAL_TILES} tiles: 0 packed and 0 fingerprint-jet rows "
-            "differ")
+            "mean (the thread-per-candidate body) in this run; partial "
+            "launch: 0 packed and 0 fingerprint-jet rows differ")
     return results, per_op
 
 
@@ -480,8 +481,9 @@ def phase_laplace(spec, dev):
     fp = torch.as_tensor(problem.fingerprint_points, dtype=torch.float32,
                          device=dev)
     names = dict(enumerate(OP_ORDER))
+    n_ops = len(OP_ORDER)
     n_tiles = SUPER // 512
-    ops_t = (np.arange(n_tiles) % len(OP_ORDER)).astype(np.int32)
+    ops_t = (np.arange(n_tiles) % n_ops).astype(np.int32)
     ab = torch.from_numpy(rng.integers(0, C, size=(SUPER, 2),
                                        dtype=np.int32)).to(dev)
     kinds = np.where(ops_t < ce.N_UNARY, 0, (np.arange(n_tiles) // 18) % 2)
@@ -489,20 +491,22 @@ def phase_laplace(spec, dev):
         rng.integers(0, C - 512, size=n_tiles),
         rng.integers(0, C, size=n_tiles), ops_t * 2 + kinds)]
     rows_op = np.repeat(ops_t, 512)
+    rag = ragged_ops(rng, PARTIAL_ROWS, n_ops)
     bad = 0
-    for live in (SUPER, PARTIAL_TILES * 512):
-        seg = (ab, torch.from_numpy(ops_t).to(dev), sp, fp)
-        bad += check(f"laplace segmented[{live} rows]", names, rows_op[:live],
-                     ce.segmented(spec, cache_s, cache_f, *seg, n_live=live),
-                     ce.segmented_ref(spec, cache_s, cache_f, *seg,
-                                      n_live=live), T)[2]
-        tl = (*til, sp, fp, SUPER)
-        bad += check(f"laplace tiled[{live} rows]", names, rows_op[:live],
-                     ce.tiled(spec, cache_s, cache_f, *tl, n_live=live),
-                     ce.tiled_ref(spec, cache_s, cache_f, *tl,
-                                  n_live=live), T)[2]
-    say(f"  laplace build (order 2): segmented and tiled, all 18 ops, "
-        f"{SUPER:,} and {PARTIAL_TILES * 512:,} live rows: 0 packed and 0 "
+    for seg_ops, nt in ((rows_op, n_tiles), (rag, PARTIAL_TILES)):
+        n = len(seg_ops)
+        seg = (ab[:n], torch.from_numpy(seg_ops).to(dev), sp, fp)
+        bad += check(f"laplace segmented[{n} rows]", names, seg_ops,
+                     ce.segmented(spec, cache_s, cache_f, *seg),
+                     ce.segmented_ref(spec, cache_s, cache_f, *seg), T)[2]
+        tl = (*(a[:nt] for a in til), sp, fp, nt * 512)
+        bad += check(f"laplace tiled[{nt} tiles]", names,
+                     rows_op[:nt * 512],
+                     ce.tiled(spec, cache_s, cache_f, *tl),
+                     ce.tiled_ref(spec, cache_s, cache_f, *tl), T)[2]
+    say(f"  laplace build (order 2): segmented ({SUPER:,} rows; "
+        f"{PARTIAL_ROWS:,} in ragged op runs) and tiled ({n_tiles} and "
+        f"{PARTIAL_TILES} tiles), all 18 ops: 0 packed and 0 "
         f"fingerprint-jet rows differ, {bad} screen-jet rows differ "
         "(exp/log ops only)")
 
@@ -834,12 +838,14 @@ def main() -> int:
         for k in GROUP_KERNELS:
             rows, cands, tile_rows = (lr[k][x] for x in (
                 "rows", "candidates", "tile_rows"))
-            if timer.rows[k] != rows or rows != tile_rows or cands > rows:
+            want = cands if k == "segmented" else tile_rows
+            if timer.rows[k] != rows or rows != want:
                 fail(f"{k}: {timer.rows[k]} rows launched, the engine "
-                     f"counts {lr[k]}: a pad tile was launched")
-            say(f"  {k}: {launches[k]} launches, {rows:,} live rows for "
-                f"{cands:,} candidates ({rows - cands:,} pad rows in the "
-                f"last tile of an op segment, no pad tile); kernel "
+                     f"counts {lr[k]}: want {want:,} rows")
+            say(f"  {k}: {launches[k]} launches, {rows:,} rows launched "
+                f"for {cands:,} candidates ({rows - cands:,} pad rows"
+                + (", each in the last 512-row tile of a run"
+                   if k == "tiled" else "") + "); kernel "
                 f"{path_ms[k]:.4f} ms summed (CUDA events); per launch "
                 "(rows, ms): " + ", ".join(
                     f"({n:,}, {ms:.4f})" for n, ms in timer.per_launch(k)))
@@ -978,8 +984,7 @@ def main() -> int:
         if k == "universal":
             kernels[-1]["per_op_launch"] = per_op_launch
         if k in GROUP_KERNELS:
-            kernels[-1].update(path_ms=path_ms[k], live_rows=timer.rows[k],
-                               prev_ms=PREV_MS[k])
+            kernels[-1].update(path_ms=path_ms[k], live_rows=timer.rows[k])
         if counts[own_path[k]] == 0:
             kernels[-1]["note"] = (
                 "not on the default depth-4 path: every contiguous run is "

@@ -2,8 +2,9 @@
 // the device jet cache, one shared body (screen_body.cuh).
 //
 // Replaces, in pde_engine_tpu/parallel/pallas_engine.py:
-//   segmented_kernel   <- make_pallas_segmented_kernel (per-row ab_idx,
-//                         one op id per 512-candidate tile)
+//   segmented_kernel   <- make_pallas_segmented_kernel (per-row ab_idx;
+//                         its op id per 512-candidate tile comes here as
+//                         one op id per row, so no tile is padded)
 //   structured_kernel  <- make_pallas_structured_kernel (one op, one
 //                         constant row, the contiguous rows big0 + i)
 //   tiled_kernel       <- make_pallas_tiled_kernel (per 512-tile opkind =
@@ -15,7 +16,8 @@
 //                         here as in the other three)
 //
 // What bounds them on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md,
-// from chip_smoke.py and pde_engine_tpu_torch/tools/screen_variants.py).
+// from chip_smoke.py and from variants of the kernels timed on the card
+// with the operand rows kept in L1 or the stores suppressed).
 // Per candidate the work is two 552-byte operand rows in (120 screen +
 // 18 fingerprint floats for force_free), a 552-byte row plus 12 bytes of
 // verdicts out, and 3,178-9,584 emitted float32 operations: the bytes
@@ -30,11 +32,12 @@
 //   - a candidate group: G lanes (JET_G, 8 for P=8, F=6) share one
 //     candidate; lane p runs screen point p and fingerprint point p, and
 //     the group's verdict parts are reduced with warp shuffles;
-//   - staged rows: a block screens 128 candidates of one 512-row tile in
-//     steps of 128 / G; each step's operand rows are copied into shared
-//     memory by neighbouring lanes in 16-byte (screen) and 8-byte
-//     (fingerprint) cp.async chunks, two steps in flight (a two-stage
-//     ring), so the next step's gather overlaps this step's arithmetic;
+//   - staged rows: a block screens 128 candidates (in tiled_kernel, of
+//     one 512-row tile) in steps of 128 / G; each step's operand rows
+//     are copied into shared memory by neighbouring lanes in 16-byte
+//     (screen) and 8-byte (fingerprint) cp.async chunks, two steps in
+//     flight (a two-stage ring), so the next step's gather overlaps this
+//     step's arithmetic;
 //     the copies are cached in L1 (.ca), so a row that many candidates
 //     share is not fetched from one L2 slice by every block at once;
 //     tiled_kernel loads its constant row once per block and fetches the
@@ -43,8 +46,10 @@
 //   - staged outputs: the step's output rows are contiguous in out_s /
 //     out_f / packed, and leave shared memory in coalesced 16-byte
 //     stores;
-//   - no pad tiles: the launch covers only the n_live rows the caller
-//     filled (whole 512-row tiles).
+//   - no pad rows in segmented_kernel: one op id per row, so the caller
+//     packs each op's candidates back to back and the launch screens
+//     exactly them; tiled_kernel screens whole 512-row tiles of a run,
+//     and only the tiles the caller filled.
 // What bounds the two now is instruction issue for the jet arithmetic:
 // about 0.21 ms per 262,144 random candidates, 0.18 ms with no HBM
 // traffic and no stores (about twice the bytes bound).  ptxas gives them
@@ -52,9 +57,10 @@
 // for 5 blocks (96 registers) did not help.
 // structured_kernel and universal_kernel still run one candidate per
 // thread through screen_candidate, rows read and written in place.  Op
-// ids are uniform over a 512-candidate tile (over the whole launch for
-// structured and universal), hence over every warp, so the op switch
-// does not diverge.
+// ids are uniform over a 512-candidate tile in tiled_kernel and over the
+// whole launch in structured and universal, hence over every warp, so
+// the op switch does not diverge there; in segmented_kernel it diverges
+// only in a warp where one op's run ends.
 //
 // Build: nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a
 //        -fmad=false -Xcompiler -fPIC -shared (pde_engine_tpu_torch/utils/
@@ -270,15 +276,24 @@ static __device__ __forceinline__ void group_screen(
   if (lane == 0) verdict_finish(s, f, rtol, ha, hb, pk);
 }
 
-// The output rows of one step, contiguous in out_s / out_f / packed from
-// candidate i0 on, leave shared memory in 16-byte stores.
+// The first m output rows of one step, contiguous in out_s / out_f /
+// packed from candidate i0 on, leave shared memory in 16-byte stores (a
+// step of fewer than kStep rows, the last of a segmented launch, stores
+// its fingerprint rows and packed words 4 bytes at a time).
 static __device__ __forceinline__ void store_step(
-    long long i0, const float* o_s, const float* o_f, const uint32_t* o_p,
-    float* out_s, float* out_f, uint32_t* packed) {
+    long long i0, int m, const float* o_s, const float* o_f,
+    const uint32_t* o_p, float* out_s, float* out_f, uint32_t* packed) {
   const int tid = threadIdx.x;
   float4* gs = reinterpret_cast<float4*>(out_s + i0 * SW);
   const float4* ss = reinterpret_cast<const float4*>(o_s);
-  for (int j = tid; j < kStep * SW / 4; j += kGroupThreads) gs[j] = ss[j];
+  for (int j = tid; j < m * SW / 4; j += kGroupThreads) gs[j] = ss[j];
+  if (m < kStep) {
+    for (int j = tid; j < m * FW; j += kGroupThreads)
+      out_f[i0 * FW + j] = o_f[j];
+    for (int j = tid; j < m * 3; j += kGroupThreads)
+      packed[3 * i0 + j] = o_p[j];
+    return;
+  }
   float4* gf = reinterpret_cast<float4*>(out_f + i0 * FW);
   const float4* sf = reinterpret_cast<const float4*>(o_f);
   for (int j = tid; j < kStep * FW / 4; j += kGroupThreads) gf[j] = sf[j];
@@ -289,19 +304,24 @@ static __device__ __forceinline__ void store_step(
 
 // Shared memory of segmented_kernel, in 4-byte words: a two-stage ring of
 // a and b operand rows (screen, then fingerprint), one step's output
-// rows, and the block's clamped operand row ids.
+// rows, and the block's clamped operand row ids and op ids.
 constexpr int kSegStageS = 2 * kStep * SW;  // a rows, then b rows
 constexpr int kSegStageF = 2 * kStep * FW;
 constexpr size_t kSegSmem =
     4 * (size_t)(2 * kSegStageS + 2 * kSegStageF + kStep * SW + kStep * FW +
-                 kStep * 3 + 2 * kBlockCands);
+                 kStep * 3 + 3 * kBlockCands);
 
-// Mixed ops, one op id per 512-candidate tile, per-row operands ab.
+// Mixed ops, one op id per row (row_ops), per-row operands ab, any n: a
+// block screens rows [blk0, blk0 + 128) clipped to n, in whole steps; the
+// rows of its last step past n repeat row n - 1 and are not stored.  The
+// caller packs each op's candidates back to back, so a warp straddles two
+// ops only where one op's run ends inside it, and only that warp runs
+// the op switch twice.
 __global__ void __launch_bounds__(kGroupThreads)
     segmented_kernel(const float* __restrict__ cache_s,
                      const float* __restrict__ cache_f, long long cap,
                      const int* __restrict__ ab,
-                     const int* __restrict__ tile_ops,
+                     const int* __restrict__ row_ops,
                      const float* __restrict__ spoints, float rtol, int n,
                      float* __restrict__ out_s, float* __restrict__ out_f,
                      uint32_t* __restrict__ packed) {
@@ -312,60 +332,69 @@ __global__ void __launch_bounds__(kGroupThreads)
   float* o_f = o_s + kStep * SW;
   uint32_t* o_p = reinterpret_cast<uint32_t*>(o_f + kStep * FW);
   int* rows = reinterpret_cast<int*>(o_p + kStep * 3);
+  int* ops = rows + 2 * kBlockCands;
 
   const int tid = threadIdx.x;
   const long long blk0 = (long long)blockIdx.x * kBlockCands;
   if (blk0 >= n) return;
-  const int op = tile_ops[blk0 / TILE];
-  const bool binary = op >= JET_N_UNARY;
-  const int n_ops = binary ? 2 : 1;  // operand rows per candidate
+  const int live = (int)(n - blk0 < kBlockCands ? n - blk0 : kBlockCands);
+  const int steps = (live + kStep - 1) / kStep;
   const int g = tid / JET_G, lane = tid % JET_G;
   const float px = lane < JET_P ? spoints[2 * lane] : 0.0f;
   const float py = lane < JET_P ? spoints[2 * lane + 1] : 0.0f;
 
   for (int j = tid; j < kBlockCands; j += kGroupThreads) {
-    rows[j] = (int)clamp_row(ab[2 * (blk0 + j)], cap);
-    rows[kBlockCands + j] = (int)clamp_row(ab[2 * (blk0 + j) + 1], cap);
+    const long long i = blk0 + (j < live ? j : live - 1);
+    rows[j] = (int)clamp_row(ab[2 * i], cap);
+    rows[kBlockCands + j] = (int)clamp_row(ab[2 * i + 1], cap);
+    ops[j] = row_ops[i];
   }
   __syncthreads();
 
   // Copy step `step`'s operand rows into ring slot `buf`: neighbouring
-  // threads take neighbouring chunks of a row.
+  // threads take neighbouring chunks of a row; a unary candidate's b row
+  // is not fetched.
   auto gather = [&](int step, int buf) {
     float* ds = st_s + buf * kSegStageS;
     float* df = st_f + buf * kSegStageF;
     const int c0 = step * kStep;
-    for (int j = tid; j < n_ops * kStep * (SW / 4); j += kGroupThreads) {
+    for (int j = tid; j < 2 * kStep * (SW / 4); j += kGroupThreads) {
       const int r = j / (SW / 4), c = j - r * (SW / 4);
-      const int w = r / kStep;
-      const long long row = rows[w * kBlockCands + c0 + (r - w * kStep)];
+      const int w = r / kStep, cand = c0 + (r - w * kStep);
+      if (w && ops[cand] < JET_N_UNARY) continue;
+      const long long row = rows[w * kBlockCands + cand];
       cp_async16(ds + r * SW + 4 * c, cache_s + row * SW + 4 * c);
     }
-    for (int j = tid; j < n_ops * kStep * (FW / 2); j += kGroupThreads) {
+    for (int j = tid; j < 2 * kStep * (FW / 2); j += kGroupThreads) {
       const int r = j / (FW / 2), c = j - r * (FW / 2);
-      const int w = r / kStep;
-      const long long row = rows[w * kBlockCands + c0 + (r - w * kStep)];
+      const int w = r / kStep, cand = c0 + (r - w * kStep);
+      if (w && ops[cand] < JET_N_UNARY) continue;
+      const long long row = rows[w * kBlockCands + cand];
       cp_async8(df + r * FW + 2 * c, cache_f + row * FW + 2 * c);
     }
   };
 
   gather(0, 0);
   cp_async_commit();
-  gather(1, 1);
-  cp_async_commit();
-  for (int step = 0; step < kSteps; ++step) {
+  if (steps > 1) gather(1, 1);
+  cp_async_commit();  // possibly empty: keeps one group per step
+  for (int step = 0; step < steps; ++step) {
     const int buf = step & 1;
     cp_async_wait_prev();
     __syncthreads();
+    const int op = ops[step * kStep + g];
+    const bool binary = op >= JET_N_UNARY;
     const float* as = st_s + buf * kSegStageS + g * SW;
     const float* af = st_f + buf * kSegStageF + g * FW;
     group_screen(op, lane, as, af, binary ? as + kStep * SW : as,
                  binary ? af + kStep * FW : af, px, py, rtol, o_s + g * SW,
                  o_f + g * FW, o_p + 3 * g);
     __syncthreads();
-    store_step(blk0 + step * kStep, o_s, o_f, o_p, out_s, out_f, packed);
-    if (step + 2 < kSteps) gather(step + 2, buf);
-    cp_async_commit();  // possibly empty: keeps one group per step
+    const int m = live - step * kStep;
+    store_step(blk0 + step * kStep, m < kStep ? m : kStep, o_s, o_f, o_p,
+               out_s, out_f, packed);
+    if (step + 2 < steps) gather(step + 2, buf);
+    cp_async_commit();
   }
 }
 
@@ -472,7 +501,8 @@ __global__ void __launch_bounds__(kGroupThreads)
     group_screen(op, lane, as, af, bs, bf, px, py, rtol, o_s + g * SW,
                  o_f + g * FW, o_p + 3 * g);
     __syncthreads();
-    store_step(blk0 + step * kStep, o_s, o_f, o_p, out_s, out_f, packed);
+    store_step(blk0 + step * kStep, kStep, o_s, o_f, o_p, out_s, out_f,
+               packed);
     if (step + 2 < kSteps) fetch(step + 2, buf);
     cp_async_commit();
   }
@@ -506,21 +536,20 @@ extern "C" int pde_screen_group_smem(int* out) {
   return 0;
 }
 
-// n: the live rows, a multiple of the 512-row tile.
+// n: the rows of ab and row_ops, any count.
 extern "C" int pde_screen_segmented(const float* cache_s,
                                     const float* cache_f, long long cap,
-                                    const int* ab, const int* tile_ops,
+                                    const int* ab, const int* row_ops,
                                     const float* spoints, float rtol, int n,
                                     float* out_s, float* out_f,
                                     uint32_t* packed, void* stream) {
-  if (n % TILE) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
+  if (n <= 0) return n ? (int)cudaErrorInvalidValue : 0;
   int rc = allow_smem((const void*)segmented_kernel, kSegSmem);
   if (rc) return rc;
-  segmented_kernel<<<n / kBlockCands, kGroupThreads, kSegSmem,
-                     (cudaStream_t)stream>>>(cache_s, cache_f, cap, ab,
-                                             tile_ops, spoints, rtol, n,
-                                             out_s, out_f, packed);
+  segmented_kernel<<<(n + kBlockCands - 1) / kBlockCands, kGroupThreads,
+                     kSegSmem, (cudaStream_t)stream>>>(
+      cache_s, cache_f, cap, ab, row_ops, spoints, rtol, n, out_s, out_f,
+      packed);
   return (int)cudaGetLastError();
 }
 
@@ -537,7 +566,8 @@ extern "C" int pde_screen_structured(const float* cache_s,
   return (int)cudaGetLastError();
 }
 
-// n: the live rows, a multiple of the 512-row tile.
+// n: the rows of the launch, one 512-row tile per entry of starts,
+// const_uid and opkind.
 extern "C" int pde_screen_tiled(const float* cache_s, const float* cache_f,
                                 long long cap, const int* starts,
                                 const int* const_uid, const int* opkind,

@@ -5,8 +5,9 @@ Four entry points with the JAX kernels' call signatures and return
 tuples ``(packed [n, 3] int32 bit patterns, jets [n, P*T] f32,
 fj [n, 3F] f32 snapped)``:
 
-- :func:`segmented` — mixed ops, one op id per 512-candidate tile,
-  operands by per-row ``ab_idx``;
+- :func:`segmented` — mixed ops, one op id per row (the JAX kernel's op
+  id per 512-candidate tile, carried per row so that no tile is padded),
+  operands by per-row ``ab_idx``, any ``n``;
 - :func:`structured` — one op, one constant row and the contiguous rows
   ``[big0, big0 + n)``;
 - :func:`tiled` — per 512-tile ``(opkind, start, const_uid)``;
@@ -17,16 +18,14 @@ On a CUDA tensor each launches its hand-written kernel
 (``csrc/screen_kernel.cu``) or raises; on a CPU tensor it runs its plain
 torch ``*_ref`` twin.  The choice follows the tensors' device only:
 nothing catches a build or launch error and falls back.  ``LAUNCHES``
-counts kernel launches per entry point.  ``segmented`` and ``tiled`` (and
-their twins) take ``n_live``, the rows of the tiles the caller filled,
-and screen and return only those.
+counts kernel launches per entry point.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -111,8 +110,6 @@ def _library(spec: ScreenSpec):
 # ---------------------------------------------------------------------------
 
 def _universal(spec, cache_s, cache_f, ab, ops, spoints, fpoints):
-    if ab.shape[0] == 0:  # a launch of no live rows
-        return _outputs(spec, 0, cache_s.device)
     return incremental.universal_ref(
         spec.order, spec.residual_key, spec.screen_rtol, spec.n_screen,
         spec.n_fp, cache_s, cache_f, ab, ops, spoints, fpoints)
@@ -127,23 +124,10 @@ def universal_ref(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
     return _universal(spec, cache_s, cache_f, ab_idx, ops, spoints, fpoints)
 
 
-def _live_rows(n: int, n_live: Optional[int]) -> int:
-    """The rows a segmented or tiled launch screens: the ``n_live`` filled
-    rows (whole 512-row tiles) of an ``n``-row superbatch, all of it by
-    default."""
-    n_live = n if n_live is None else int(n_live)
-    if not 0 <= n_live <= n or n_live % TILE:
-        raise ValueError(f"n_live={n_live} is not a multiple of {TILE} in "
-                         f"[0, {n}]")
-    return n_live
-
-
-def segmented_ref(spec: ScreenSpec, cache_s, cache_f, ab_idx, tile_ops,
-                  spoints, fpoints, n_live: Optional[int] = None):
-    n = _live_rows(int(ab_idx.shape[0]), n_live)
-    ops = tile_ops[:n // TILE].to(torch.int64).repeat_interleave(TILE)
-    return _universal(spec, cache_s, cache_f, ab_idx[:n], ops, spoints,
-                      fpoints)
+def segmented_ref(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops,
+                  spoints, fpoints):
+    return _universal(spec, cache_s, cache_f, ab_idx, row_ops.to(torch.int64),
+                      spoints, fpoints)
 
 
 def _structured_ab(op_id: int, const_uid: int, big0: int, big: str, n: int,
@@ -171,18 +155,17 @@ def structured_ref(spec: ScreenSpec, cache_s, cache_f, const_uid: int,
 
 
 def tiled_ref(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
-              spoints, fpoints, n_batch: int, n_live: Optional[int] = None):
+              spoints, fpoints, n_batch: int):
     assert n_batch % TILE == 0 and starts.shape[0] == n_batch // TILE
-    nt = _live_rows(n_batch, n_live) // TILE
-    starts = starts[:nt].to(torch.int64)
-    assert nt == 0 or (int(starts.min()) >= 0 and
-                       int(starts.max()) + TILE <= cache_s.shape[0]), \
+    starts = starts.to(torch.int64)
+    assert int(starts.min()) >= 0 and \
+        int(starts.max()) + TILE <= cache_s.shape[0], \
         "tiled run past the cache allocation"
-    ok = opkind[:nt].to(torch.int64)
+    ok = opkind.to(torch.int64)
     op = ok >> 1
-    lane = torch.arange(TILE, device=starts.device).repeat(nt)
+    lane = torch.arange(TILE, device=starts.device).repeat(n_batch // TILE)
     big = starts.repeat_interleave(TILE) + lane
-    const = const_uid[:nt].to(torch.int64).repeat_interleave(TILE)
+    const = const_uid.to(torch.int64).repeat_interleave(TILE)
     op_rows = op.repeat_interleave(TILE)
     swap = ((ok & 1) == 1).repeat_interleave(TILE) & (op_rows >= N_UNARY)
     ab = torch.stack([torch.where(swap, const, big),
@@ -235,26 +218,24 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, tile_ops, spoints,
-              fpoints, n_live: Optional[int] = None):
-    """Mixed-op superbatch (make_pallas_segmented_kernel): screens and
-    returns the first ``n_live`` rows of ``ab_idx`` (whole tiles; all of
-    them by default)."""
+def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
+              fpoints):
+    """Mixed-op batch (make_pallas_segmented_kernel): candidate ``i`` is
+    op ``row_ops[i]`` (in ``[0, 18)``) on the cache rows ``ab_idx[i]``.
+    Any ``n``: the caller packs each op's candidates back to back and
+    passes exactly its candidates."""
     if cache_s.device.type == "cpu":
-        return segmented_ref(spec, cache_s, cache_f, ab_idx, tile_ops,
-                             spoints, fpoints, n_live)
+        return segmented_ref(spec, cache_s, cache_f, ab_idx, row_ops,
+                             spoints, fpoints)
     n = int(ab_idx.shape[0])
-    if n % TILE:
-        raise ValueError(f"batch of {n} rows is not a multiple of {TILE}")
-    live = _live_rows(n, n_live)
     cap = _check_cache(spec, cache_s, cache_f, spoints)
     _check(ab_idx, "ab_idx", torch.int32, (n, 2))
-    _check(tile_ops, "tile_ops", torch.int32, (n // TILE,))
-    packed, jets, fj = _outputs(spec, live, cache_s.device)
-    if live:
+    _check(row_ops, "row_ops", torch.int32, (n,))
+    packed, jets, fj = _outputs(spec, n, cache_s.device)
+    if n:
         rc = _library(spec).pde_screen_segmented(
             cache_s.data_ptr(), cache_f.data_ptr(), cap, ab_idx.data_ptr(),
-            tile_ops.data_ptr(), spoints.data_ptr(), spec.screen_rtol, live,
+            row_ops.data_ptr(), spoints.data_ptr(), spec.screen_rtol, n,
             jets.data_ptr(), fj.data_ptr(), packed.data_ptr(), _stream())
         _raise_on(rc, "segmented")
         LAUNCHES["segmented"] += 1
@@ -286,33 +267,29 @@ def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
 
 
 def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
-          spoints, fpoints, n_batch: int, n_live: Optional[int] = None):
-    """Per-tile (op, kind, start, const) runs (make_pallas_tiled_kernel):
-    screens and returns the first ``n_live`` rows of the ``n_batch``-row
-    batch (whole tiles; all of it by default).  The caller keeps every
-    ``start + 512`` within the cache allocation; the kernel clamps rows as
-    a memory guard."""
+          spoints, fpoints, n_batch: int):
+    """Per-tile (op, kind, start, const) runs (make_pallas_tiled_kernel).
+    The caller keeps every ``start + 512`` within the cache allocation;
+    the kernel clamps rows as a memory guard."""
     if cache_s.device.type == "cpu":
         return tiled_ref(spec, cache_s, cache_f, starts, const_uid, opkind,
-                         spoints, fpoints, n_batch, n_live)
+                         spoints, fpoints, n_batch)
     if n_batch % TILE:
         raise ValueError(f"batch of {n_batch} rows is not a multiple of "
                          f"{TILE}")
-    live = _live_rows(n_batch, n_live)
     cap = _check_cache(spec, cache_s, cache_f, spoints)
     nt = n_batch // TILE
     _check(starts, "starts", torch.int32, (nt,))
     _check(const_uid, "const_uid", torch.int32, (nt,))
     _check(opkind, "opkind", torch.int32, (nt,))
-    packed, jets, fj = _outputs(spec, live, cache_s.device)
-    if live:
-        rc = _library(spec).pde_screen_tiled(
-            cache_s.data_ptr(), cache_f.data_ptr(), cap, starts.data_ptr(),
-            const_uid.data_ptr(), opkind.data_ptr(), spoints.data_ptr(),
-            spec.screen_rtol, live, jets.data_ptr(), fj.data_ptr(),
-            packed.data_ptr(), _stream())
-        _raise_on(rc, "tiled")
-        LAUNCHES["tiled"] += 1
+    packed, jets, fj = _outputs(spec, n_batch, cache_s.device)
+    rc = _library(spec).pde_screen_tiled(
+        cache_s.data_ptr(), cache_f.data_ptr(), cap, starts.data_ptr(),
+        const_uid.data_ptr(), opkind.data_ptr(), spoints.data_ptr(),
+        spec.screen_rtol, n_batch, jets.data_ptr(), fj.data_ptr(),
+        packed.data_ptr(), _stream())
+    _raise_on(rc, "tiled")
+    LAUNCHES["tiled"] += 1
     return packed, jets, fj
 
 

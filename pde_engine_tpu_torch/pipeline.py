@@ -953,29 +953,34 @@ class DiscoveryEngine:
 
         gen = self.enumerator.vector_batches_at_depth(
             depth, SUPER, max_parent_uid=self.cache.n)
+        # the mixed superbatch: its candidates back to back, one op id per
+        # row; it is full when its segments, each rounded up to whole
+        # 512-row tiles as in the JAX engine, fill n_tiles, so superbatch
+        # boundaries (hence the ingest order) follow the JAX engine's
         ab = np.zeros((SUPER, 2), np.int32)
-        tile_ops = np.zeros(n_tiles, np.int32)
+        row_ops = np.zeros(SUPER, np.int32)
         segs: List = []
         fill_tiles = 0
+        fill_rows = 0
         pending = None
 
         def dispatch():
-            """Launch the filled tiles only; their rows index [0, live)."""
-            nonlocal ab, tile_ops, segs, fill_tiles
-            live = fill_tiles * TILE
+            """Launch the superbatch's candidates, rows [0, fill_rows)."""
+            nonlocal ab, row_ops, segs, fill_tiles, fill_rows
+            n = fill_rows
             td = time.perf_counter()
             packed, out_s, out_f = cuda_engine.segmented(
-                spec, self.cache.screen, self.cache.fp, self._dev(ab[:live]),
-                self._dev(tile_ops[:fill_tiles]), self._spoints,
-                self._fpoints, n_live=live)
+                spec, self.cache.screen, self.cache.fp, self._dev(ab[:n]),
+                self._dev(row_ops[:n]), self._spoints, self._fpoints)
             st.t_device += time.perf_counter() - td
             self.segmented_dispatches += 1
-            self._tally_launch("segmented", live, [s[2].size for s in segs])
+            self._tally_launch("segmented", n, [s[2].size for s in segs])
             item = (segs, packed, out_s, out_f)
             ab = np.zeros((SUPER, 2), np.int32)
-            tile_ops = np.zeros(n_tiles, np.int32)
+            row_ops = np.zeros(SUPER, np.int32)
             segs = []
             fill_tiles = 0
+            fill_rows = 0
             return item
 
         def drain_head(item):
@@ -1035,14 +1040,15 @@ class DiscoveryEngine:
         t_fill = 0
 
         def dispatch_tiled():
-            """Launch the filled tiles only; their rows index [0, live)."""
+            """Launch the filled tiles only, rows [0, t_fill * 512)."""
             nonlocal t_starts, t_const, t_opkind, t_segs, t_fill
             live = t_fill * TILE
             td = time.perf_counter()
             packed, out_s, out_f = cuda_engine.tiled(
-                spec, self.cache.screen, self.cache.fp, self._dev(t_starts),
-                self._dev(t_const), self._dev(t_opkind), self._spoints,
-                self._fpoints, SUPER, n_live=live)
+                spec, self.cache.screen, self.cache.fp,
+                self._dev(t_starts[:t_fill]), self._dev(t_const[:t_fill]),
+                self._dev(t_opkind[:t_fill]), self._spoints, self._fpoints,
+                live)
             st.t_device += time.perf_counter() - td
             self.tiled_dispatches += 1
             self._tally_launch("tiled", live, [s[2].size for s in t_segs])
@@ -1140,17 +1146,15 @@ class DiscoveryEngine:
                     advance(dispatch)
                     continue
                 take = min(int(a_u.size) - pos, room_rows)
-                start = fill_tiles * TILE
+                start = fill_rows
                 ab[start:start + take, 0] = a_u[pos:pos + take]
                 if b_u is not None:
                     ab[start:start + take, 1] = b_u[pos:pos + take]
-                used = -(-take // TILE)
-                tile_ops[fill_tiles:fill_tiles + used] = opid
-                # pad rows keep ab == (0, 0); their results fall outside
-                # every segment's [start, start+n) window
+                row_ops[start:start + take] = opid
                 segs.append((op_name, start, a_u[pos:pos + take],
                              None if b_u is None else b_u[pos:pos + take]))
-                fill_tiles += used
+                fill_tiles += -(-take // TILE)
+                fill_rows += take
                 pos += take
         if t_fill:
             advance(dispatch_tiled)
@@ -1206,7 +1210,8 @@ class DiscoveryEngine:
     def launched_rows(self) -> Dict[str, Dict[str, int]]:
         """Per kernel: the rows its launches screened, the candidates
         among them, and the rows of the 512-row tiles that hold a
-        candidate (equal to ``rows`` where no pad tile is launched)."""
+        candidate.  ``segmented`` launches exactly its candidates, and
+        ``tiled`` exactly those tiles."""
         return {k: dict(zip(("rows", "candidates", "tile_rows"), v))
                 for k, v in self.launch_rows.items()}
 
@@ -1279,10 +1284,8 @@ class DiscoveryEngine:
         (op, a, b) triples through the production kernels, depth-ascending
         (a unique's parents live at strictly lower depths).  The per-op
         path replays each (depth, op) run through ``universal``; the
-        segmented path packs each depth's op runs into tile-aligned
-        superbatches for ``segmented`` and launches their filled tiles
-        only, the pad rows of a run's last tile repeating its last real
-        row so that their outputs scatter onto that same uid."""
+        segmented path replays each depth's rows, op runs back to back,
+        through ``segmented`` in launches of at most a superbatch."""
         enum = self.enumerator
         idx = np.arange(lo, total, dtype=np.int64)
         composed = idx[np.asarray(enum.u_op[lo:total]) >= 0]
@@ -1302,7 +1305,6 @@ class DiscoveryEngine:
         b_all = np.asarray(enum.u_b[composed], np.int32)
         b_all = np.where(b_all < 0, 0, b_all)
         SUPER = max(TILE, (self.config.batch_size // TILE) * TILE)
-        n_tiles = SUPER // TILE
         pos, n = 0, composed.size
         while pos < n:
             # one depth at a time: a launch never holds a child of a row
@@ -1321,35 +1323,16 @@ class DiscoveryEngine:
                     dp = oend
                 pos = dend
                 continue
-            while dp < dend:
-                ab = np.zeros((SUPER, 2), np.int32)
-                t_ops = np.zeros(n_tiles, np.int32)
-                uids = np.zeros(SUPER, np.int64)
-                fill = 0  # in tiles
-                while dp < dend and fill < n_tiles:
-                    oend = dp + int(np.searchsorted(kops[dp:dend], kops[dp],
-                                                    "right"))
-                    take = min(oend - dp, (n_tiles - fill) * TILE)
-                    ntile = -(-take // TILE)
-                    s = fill * TILE
-                    ab[s:s + take, 0] = a_all[dp:dp + take]
-                    ab[s:s + take, 1] = b_all[dp:dp + take]
-                    uids[s:s + take] = composed[dp:dp + take]
-                    pad = ntile * TILE - take
-                    if pad:
-                        ab[s + take:s + take + pad] = ab[s + take - 1]
-                        uids[s + take:s + take + pad] = uids[s + take - 1]
-                    t_ops[fill:fill + ntile] = kops[dp]
-                    fill += ntile
-                    dp += take
-                live = fill * TILE
+            for lo_r in range(pos, dend, SUPER):
+                hi_r = min(lo_r + SUPER, dend)
+                ab = np.stack([a_all[lo_r:hi_r], b_all[lo_r:hi_r]], axis=1)
                 t0 = time.perf_counter()
                 _, out_s, out_f = cuda_engine.segmented(
                     self._spec, self.cache.screen, self.cache.fp,
-                    self._dev(ab[:live]), self._dev(t_ops[:fill]),
-                    self._spoints, self._fpoints, n_live=live)
+                    self._dev(ab), self._dev(kops[lo_r:hi_r]),
+                    self._spoints, self._fpoints)
                 self.segmented_dispatches += 1
-                self._scatter_rows(uids[:live], out_s, out_f)
+                self._scatter_rows(composed[lo_r:hi_r], out_s, out_f)
                 self.device_seconds += time.perf_counter() - t0
             pos = dend
 

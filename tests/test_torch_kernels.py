@@ -44,7 +44,8 @@ The CUDA kernels themselves are held bit-equal to these references on the
 GPU (``test_cuda_kernels_match_ref`` below, run there with
 ``python -m pytest tests/test_torch_kernels.py -m gpu --noconftest``;
 the suite's conftest imports jax, which the GPU machine does not have),
-on full launches and on launches of fewer live tiles than the batch.
+on full launches and on partial ones (segmented on a ragged row count
+whose op runs end inside warps, tiled on fewer tiles).
 
 On the CPU, the host build of the kernels' body (``csrc/host_harness.cpp``,
 g++) runs the segmented and tiled kernels' candidate group with its warp
@@ -230,11 +231,14 @@ def _agree(name, row_ops, jax_out, torch_out):
 
 
 def _segmented(st):
+    """The port's segmented entry on the JAX kernel's inputs, its op id
+    per 512-row tile given per row."""
     x = st["x"]
     ts, tf, tsp, tfp = _torch_args(st)
+    row_ops = np.repeat(x["seg_ops"], TILE)
     out = ce.segmented(st["spec"], ts, tf, torch.from_numpy(x["seg_ab"]),
-                       torch.from_numpy(x["seg_ops"]), tsp, tfp)
-    return np.repeat(x["seg_ops"], TILE), out
+                       torch.from_numpy(row_ops), tsp, tfp)
+    return row_ops, out
 
 
 def _structured(st, big):
@@ -342,7 +346,9 @@ def test_refs_refuse_out_of_range_runs(setup):
 def test_cuda_kernels_match_ref():
     """On a GPU: the hand-written kernels are bit-equal to their plain
     torch versions (NaN equal to NaN) for every op and addressing mode,
-    the per-op kernel on a batch that is not a tile multiple."""
+    segmented and tiled also on partial launches (segmented on a ragged
+    row count whose op runs end inside warps), the per-op kernel on a
+    batch that is not a tile multiple."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (hand-written kernels have no CPU "
                     "mode)")
@@ -361,10 +367,10 @@ def test_cuda_kernels_match_ref():
     tfp = torch.as_tensor(problem.fingerprint_points, dtype=torch.float32,
                           device=dev)
     N = 9216
-    ops = (np.arange(N // TILE) % len(OP_ORDER)).astype(np.int32)
+    ops = np.repeat(np.arange(N // TILE) % len(OP_ORDER), TILE)
     ab = rng.integers(0, C, size=(N, 2)).astype(np.int32)
-    args = (torch.from_numpy(ab).to(dev), torch.from_numpy(ops).to(dev),
-            tsp, tfp)
+    args = (torch.from_numpy(ab).to(dev),
+            torch.from_numpy(ops.astype(np.int32)).to(dev), tsp, tfp)
     outs = [(ce.segmented(spec, ts, tf, *args),
              ce.segmented_ref(spec, ts, tf, *args))]
     for op in range(len(OP_ORDER)):
@@ -382,13 +388,21 @@ def test_cuda_kernels_match_ref():
         0, C, size=nt).astype(np.int32)).to(dev)
     a = (starts, const, opkind, tsp, tfp, N)
     outs.append((ce.tiled(spec, ts, tf, *a), ce.tiled_ref(spec, ts, tf, *a)))
-    # partial launches: the first 15 of 18 tiles live
-    live = N - 3 * TILE
-    outs.append((ce.segmented(spec, ts, tf, *args, n_live=live),
-                 ce.segmented_ref(spec, ts, tf, *args, n_live=live)))
-    outs.append((ce.tiled(spec, ts, tf, *a, n_live=live),
-                 ce.tiled_ref(spec, ts, tf, *a, n_live=live)))
-    assert all(x.shape[0] == live for x in outs[-1][0] + outs[-2][0])
+    # partial launches: segmented on 7,757 rows whose op runs of 1-200
+    # rows end at any lane, tiled on the first 15 of 18 tiles
+    live = N - 3 * TILE + 77
+    ragged = np.repeat(np.arange(live) % len(OP_ORDER),
+                       rng.integers(1, 200, size=live))[:live]
+    part = (args[0][:live], torch.from_numpy(ragged.astype(np.int32)).to(dev),
+            tsp, tfp)
+    outs.append((ce.segmented(spec, ts, tf, *part),
+                 ce.segmented_ref(spec, ts, tf, *part)))
+    nt15 = 15
+    a15 = (starts[:nt15], const[:nt15], opkind[:nt15], tsp, tfp, nt15 * TILE)
+    outs.append((ce.tiled(spec, ts, tf, *a15),
+                 ce.tiled_ref(spec, ts, tf, *a15)))
+    assert all(x.shape[0] == live for x in outs[-2][0])
+    assert all(x.shape[0] == nt15 * TILE for x in outs[-1][0])
     # universal: one op per launch over a ragged batch (no tile multiple)
     ab_u = torch.from_numpy(ab[:N - 100]).to(dev)
     for op in range(len(OP_ORDER)):
@@ -409,33 +423,34 @@ def test_cuda_kernels_match_ref():
 
 @pytest.mark.parametrize("kernel", ["segmented", "tiled"])
 def test_live_rows_are_a_prefix(setup, kernel):
-    """``n_live`` (whole tiles) screens and returns exactly the first
-    ``n_live`` rows of the full launch, through the plain twin and the
-    entry point on CPU tensors; anything but a tile multiple in [0, n]
-    raises."""
+    """A partial launch, its inputs cut to the live rows (segmented: any
+    row count; tiled: whole tiles), screens and returns exactly the first
+    rows of the full launch, through the plain twin and the entry point
+    on CPU tensors; a tiled batch that is not whole tiles is refused."""
     x, spec = setup["x"], setup["spec"]
     ts, tf, tsp, tfp = _torch_args(setup)
     if kernel == "segmented":
-        args = (torch.from_numpy(x["seg_ab"]), torch.from_numpy(x["seg_ops"]),
-                tsp, tfp)
+        ab = torch.from_numpy(x["seg_ab"])
+        ops = torch.from_numpy(np.repeat(x["seg_ops"], TILE))
+        live = 5 * TILE + 77
+        args, cut = (ab, ops, tsp, tfp), (ab[:live], ops[:live], tsp, tfp)
         ref, entry = ce.segmented_ref, ce.segmented
     else:
-        args = (torch.from_numpy(x["til_starts"]),
-                torch.from_numpy(x["til_const"]),
-                torch.from_numpy(x["til_opkind"]), tsp, tfp,
-                len(x["til_opkind"]) * TILE)
+        tiles = [torch.from_numpy(x[k]) for k in ("til_starts", "til_const",
+                                                  "til_opkind")]
+        live = 5 * TILE
+        args = (*tiles, tsp, tfp, len(x["til_opkind"]) * TILE)
+        cut = (*(t[:5] for t in tiles), tsp, tfp, live)
         ref, entry = ce.tiled_ref, ce.tiled
     full = ref(spec, ts, tf, *args)
-    live = 5 * TILE
     for fn in (ref, entry):
-        part = fn(spec, ts, tf, *args, n_live=live)
+        part = fn(spec, ts, tf, *cut)
         for p, f in zip(part, full):
             assert p.shape[0] == live
             assert torch.equal(p.view(torch.int32), f[:live].view(torch.int32))
-        assert all(t.shape[0] == 0 for t in fn(spec, ts, tf, *args, n_live=0))
-    for bad in (live + 1, -TILE, full[0].shape[0] + TILE):
-        with pytest.raises(ValueError):
-            ref(spec, ts, tf, *args, n_live=bad)
+    if kernel == "tiled":
+        with pytest.raises(AssertionError):
+            ref(spec, ts, tf, *cut[:5], live + 1)
 
 
 HOST_ROWS_PER_OP = 240

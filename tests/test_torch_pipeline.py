@@ -149,7 +149,7 @@ def test_jax_snapshot_round_trip_and_superbatch(engines):
     spec = port._spec
     t_p, _, _ = ce.segmented(
         spec, cache.screen, cache.fp, torch.from_numpy(ab),
-        torch.from_numpy(tile_ops),
+        torch.from_numpy(np.repeat(tile_ops, TILE)),
         torch.as_tensor(p.screen_points, dtype=torch.float32), None)
     j = np.asarray(j_p)[real]
     t = t_p.numpy().view(np.uint32)[real]

@@ -309,23 +309,19 @@ def test_cuda_resume_without_gpu_raises(tmp_path):
                             device="cuda")
 
 
-def _replay_tile_rows(enum, lo, total):
-    """Rows of the 512-row tiles the segmented replay of the composed
-    uniques [lo, total) needs: each (depth, op) run of uids rounded up to
-    whole tiles."""
-    runs = {}
-    for u in range(lo, total):
-        if enum.u_op[u] >= 0:
-            key = (int(enum.u_depth[u]), int(enum.u_op[u]))
-            runs[key] = runs.get(key, 0) + 1
-    return sum(-(-m // ce.TILE) * ce.TILE for m in runs.values())
+def _composed(enum, lo, total):
+    """The composed uniques among [lo, total): the rows a replay of the
+    cache screens."""
+    return sum(1 for u in range(lo, total) if enum.u_op[u] >= 0)
 
 
 def test_segmented_replay_launches_filled_tiles(tmp_path, monkeypatch):
     """With 4-tile superbatches the segmented replay of a depth-3 cache
-    spans several superbatches per depth, the last one partial.  Each
-    launch screens its filled tiles only (no pad tile), and the rebuilt
-    cache equals the fresh run's bit for bit."""
+    spans several superbatches per depth, the last one partial.  The
+    launches screen exactly the composed uniques (no pad row), and the
+    rebuilt cache equals the fresh run's bit for bit.  The fresh run's
+    segmented launches screen exactly their candidates, its tiled
+    launches exactly the 512-row tiles that hold one."""
     cfg = dict(snapshot_jets=False, use_segmented=True, batch_size=2048)
     fresh = _run(tmp_path / "fresh.db", 3, **cfg)
     fresh.run(3)
@@ -333,23 +329,21 @@ def test_segmented_replay_launches_filled_tiles(tmp_path, monkeypatch):
     want = fresh.engine.cache.snapshot()
     lr = fresh.engine.launched_rows()
     fresh.close()
-    for k in ("segmented", "tiled"):
-        assert lr[k]["rows"] == lr[k]["tile_rows"] >= lr[k]["candidates"]
-    assert lr["segmented"]["rows"] > 0
+    assert lr["segmented"]["rows"] == lr["segmented"]["candidates"] > 0
+    assert lr["tiled"]["rows"] == lr["tiled"]["tile_rows"] >= \
+        lr["tiled"]["candidates"]
 
     launches = []
 
-    def counted(spec, cs, cf, ab, tile_ops, sp, fp, n_live=None,
-                _fn=ce.segmented):
-        out = _fn(spec, cs, cf, ab, tile_ops, sp, fp, n_live)
+    def counted(spec, cs, cf, ab, row_ops, sp, fp, _fn=ce.segmented):
+        out = _fn(spec, cs, cf, ab, row_ops, sp, fp)
         launches.append(int(out[0].shape[0]))
         return out
     monkeypatch.setattr(ce, "segmented", counted)
     res = _resume(tmp_path / "fresh.db", rid, 3, **cfg)
     enum = res.engine.enumerator
-    assert sum(launches) == _replay_tile_rows(enum, 0,
-                                              enum.count_uniques())
-    assert all(0 < n <= 2048 and n % ce.TILE == 0 for n in launches)
+    assert sum(launches) == _composed(enum, 0, enum.count_uniques())
+    assert all(0 < n <= 2048 for n in launches)
     assert any(n < 2048 for n in launches)
     got = res.engine.cache.snapshot()
     assert got["n"] == want["n"]
@@ -361,7 +355,7 @@ def test_segmented_replay_launches_filled_tiles(tmp_path, monkeypatch):
 
 def test_partial_superbatch_resume_matches_fresh(tmp_path):
     """A no-snapshot segmented resume at 4-tile superbatches (the replay's
-    last superbatch partial, launched without its pad tiles) extends a
+    last superbatch partial, launched without pad rows) extends a
     depth-2 run to depth 3 with a fresh depth-3 run's rows, row for
     row."""
     cfg = dict(snapshot_jets=False, use_segmented=True, batch_size=2048)
