@@ -21,10 +21,14 @@ Phases, one line each (any failure exits non-zero):
               on a partial launch (segmented: 19,021 rows in op runs of
               1-199 rows, so runs end inside warps; tiled: 37 tiles of
               512) and on the laplace build (order 2), full and
-              partial; universal also
-              at the per-op path's launch shape (8,192 rows, the first
-              502 real, the pad rows reading row 0), with the host round
-              trip of one such launch;
+              partial; structured also at its path's launch shape (4,096
+              rows); universal also at the per-op path's launch shape
+              (502 rows, the mean of a depth-4 per-op launch), with the
+              host round trip of one such launch; at those shapes each
+              is timed three ways: the entry point called back to back
+              (host work included), the kernel alone (50 launches
+              replayed from a CUDA graph), and an isolated launch after
+              the card idled 5 ms, as the paths launch;
 4. main     — ``python -m pde_engine_tpu_torch --problem force_free
               --max-depth 4 --device cuda`` through ``cli.main``: 7/7
               known solutions, exact depth-1/2 counts, depth-3/4 counts
@@ -33,7 +37,8 @@ Phases, one line each (any failure exits non-zero):
               rows; segmented must launch exactly its candidates, tiled
               exactly the 512-row tiles that hold one);
 5. structured coverage — depth 4 again with ``--batch-size 4096``, which
-              takes the structured kernel; every valid key of either run
+              takes the structured kernel (every launch timed with CUDA
+              events, as in phase 4); every valid key of either run
               must be a key of the other, and a key's verdict may differ
               only where the two runs kept another expression for it
               (each such key is printed with both expressions and their
@@ -46,7 +51,9 @@ Phases, one line each (any failure exits non-zero):
               of phase 4 (the per-op path screens candidates in another
               order, so a key can keep another expression); the keys
               found by only one of the two runs are counted per depth,
-              and each key whose verdict differs is printed;
+              and each key whose verdict differs is printed; every
+              universal launch timed with CUDA events, and the launched
+              rows must equal the candidates;
 7. resume   — a CLI depth-3 run, then ``--resume-run <id> --max-depth
               4``: its depth-4 rows equal phase 4's row for row (id,
               expression, signature, is_valid);
@@ -54,25 +61,32 @@ Phases, one line each (any failure exits non-zero):
               ``use_segmented=False, snapshot_jets=False``, resumed to
               depth 4: the cache is rebuilt by replaying composed rows
               through ``universal``, and the rows equal phase 6's row
-              for row.
+              for row (its universal launches timed as in phase 6).
 
 The launch counts are reset just before each run of phases 4-8 and read
 just after it.  In the kernels line, ``launches`` is each kernel's count
 on its own path: phase 4 (the segmented main path, default batch) for
-segmented, structured and tiled, phase 6 (the per-op path) for
-universal; ``launches_by_phase`` has every phase's counts; for segmented and tiled,
-``path_ms`` and ``live_rows`` are phase 4's summed kernel time and
-launched rows.  Phase 4
+segmented and tiled, phase 5 (``--batch-size 4096``) for structured,
+phase 6 (the per-op path) for universal; ``launches_by_phase`` has
+every phase's counts; ``path_ms`` and ``live_rows`` are the summed
+CUDA-event windows around the launches and the launched rows on that
+path, ``path_device_ms`` the kernels' summed device time read from the
+CUDA activity trace (null where none was taken): the card idles between
+a path's launches, and an event window then holds its wake-up as well;
+``path`` the launches' rows and event-window ms (each launch for
+segmented, tiled and structured; a summary by launch size for
+universal, whose every launch of phases 6 and 8 goes to
+``chiprun_out/chip_smoke_launches.json``).  Phase 4
 takes no structured launch at depth 4 (every contiguous run is shorter
 than a 262,144 superbatch); phase 5 does.  ``bound_ms`` is the larger
 of the bytes the launch must move (each distinct operand row read once,
 its index arrays, 564 B written per candidate) over 3.35 TB/s and its
 float operations (the emitted jet algebra and residual, counted per op
 by ``ops/cuda_emit.op_counts``) over 67 TFLOP/s: the H100 SXM data
-sheet.  ``universal``'s ``per_op_launch`` holds its numbers at the
-per-op launch shape.  The last lines are one JSON object describing the
-kernels, the card line and the result object.  Imports no jax and
-nothing of the JAX package.
+sheet.  ``path_shape`` holds structured's and universal's numbers at
+their paths' launch shapes.  The last lines are one JSON object
+describing the kernels, the card line and the result object.  Imports
+no jax and nothing of the JAX package.
 """
 
 import ctypes
@@ -92,8 +106,9 @@ sys.modules["pde_engine_tpu"] = None
 TPU_REF = {3: (8974, 2155), 4: (656856, 59865)}   # uniques, valid (TPU run)
 EXACT = {1: (5, 4), 2: (153, 93)}
 SUPER = 262144
-PER_OP_ROWS = 8192   # the per-op path's padded launch (pipeline._eval_op_idx)
-PER_OP_REAL = 502    # its mean real rows at depth 4: 723,618 / 1,440 launches
+PER_OP_ROWS = 502    # the per-op path's mean launch at depth 4 (723,618
+                     # candidates / 1,440 launches of pipeline._eval_op_idx)
+STRUCT_ROWS = 4096   # a structured launch at --batch-size 4096
 DEPTH3_ROWS = 9134   # cache rows of the depth <= 3 uniques (5 + 153 + 8,976)
 EXP_LOG_OPS = ("exp", "exp_neg", "log", "exp_mul", "log_mul")
 ULP_BOUND = 4
@@ -111,6 +126,9 @@ OUT_BYTES = 4 * (120 + 18 + 3)  # jets, fingerprint jets, packed verdicts
 PARTIAL_TILES = 37  # tiles of the partial tiled launch
 PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
+KERNELS = ("segmented", "structured", "tiled", "universal")
+OWN_PATH = {"segmented": "main", "structured": "batch_4096",
+            "tiled": "main", "universal": "per_op"}
 
 
 def fail(msg: str):
@@ -211,6 +229,68 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``'s kernels alone: ``reps`` calls
+    captured into one CUDA graph and replayed back to back, so that no
+    host work (checks, allocations, the launch call) sits between two
+    launches, as it does in ``time_ms`` where a small launch takes less
+    time than the host needs to issue it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+IDLE_S = 0.005  # host time between two isolated launches
+
+
+def isolated_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Median kernel window of ``fn``'s launch of ``kernel`` after the card
+    has idled IDLE_S, timed as on the engine's paths (CUDA events just
+    around the launcher, ``LaunchTimer``)."""
+    import numpy as np
+    import torch
+    with LaunchTimer() as timer:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            time.sleep(IDLE_S)
+            fn()
+    return float(np.median([ms for _, ms in timer.per_launch(kernel)]))
+
+
+def idle_floor_ms(reps: int = 20) -> float:
+    """Median window of CUDA events around one one-element add after the
+    card has idled IDLE_S: the least an isolated launch reads on the
+    paths."""
+    import numpy as np
+    import torch
+    x = torch.zeros(1, device="cuda")
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        time.sleep(IDLE_S)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        x.add_(1.0)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return float(np.median(out))
 
 
 def round_trip_ms(fn, reps: int) -> float:
@@ -342,9 +422,51 @@ def phase_kernels(spec, dev):
                                    device=dev)
                 bounds_s.append(bound(SUPER, run, cst, 0,
                                       SUPER * float(ops_of[op])))
+    # structured at its path's launch shape (--batch-size 4096): every
+    # op and kind, timed
+    ms_q, plain_q, bounds_q, graph_q, iso_q = [], [], [], [], []
+    for op in range(n_ops):
+        for big in (("a",) if op < unary else ("a", "b")):
+            big0 = int(rng.integers(0, C - STRUCT_ROWS))
+            const = int(rng.integers(0, C))
+            a = (const, big0, op, sp, fp, big, STRUCT_ROWS)
+            e, u, b = check(f"structured[{big}, {STRUCT_ROWS} rows]", names,
+                            np.full(STRUCT_ROWS, op),
+                            ce.structured(spec, cache_s, cache_f, *a),
+                            ce.structured_ref(spec, cache_s, cache_f, *a))
+            err_s, ulp_s = max(err_s, e), max(ulp_s, u)
+            rows_s += STRUCT_ROWS
+            bad_s += b
+            ms_q.append(time_ms(lambda: ce.structured(
+                spec, cache_s, cache_f, *a), 50))
+            graph_q.append(graph_ms(lambda: ce.structured(
+                spec, cache_s, cache_f, *a), 50))
+            iso_q.append(isolated_ms(lambda: ce.structured(
+                spec, cache_s, cache_f, *a), "structured"))
+            plain_q.append(time_ms(lambda: ce.structured_ref(
+                spec, cache_s, cache_f, *a), 2))
+            bounds_q.append(bound(
+                STRUCT_ROWS, torch.arange(big0, big0 + STRUCT_ROWS,
+                                          device=dev),
+                torch.tensor([const] if op >= unary else [], device=dev), 0,
+                STRUCT_ROWS * float(ops_of[op]))[0])
     results["structured"] = (
         err_s, ulp_s, float(np.mean(ms_s)), float(np.mean(plain_s)), rows_s,
         bad_s, float(np.mean([b for b, _ in bounds_s])), bounds_s[0][1])
+    shapes = {"structured": {
+        "rows": STRUCT_ROWS, "ms": float(np.mean(ms_q)), "ms_min": min(ms_q),
+        "ms_max": max(ms_q), "kernel_ms": float(np.mean(graph_q)),
+        "isolated_ms": float(np.mean(iso_q)),
+        "plain_ms": float(np.mean(plain_q)),
+        "bound_ms": float(np.mean(bounds_q))}}
+    say(f"  structured at its path's launch shape ({STRUCT_ROWS:,} rows, "
+        f"every op and kind): 0 packed and 0 fingerprint-jet rows differ; "
+        f"entry point back to back {shapes['structured']['ms']:.4f} "
+        f"ms/launch ({min(ms_q):.4f}-{max(ms_q):.4f}); kernel alone (CUDA "
+        f"graph) {np.mean(graph_q):.4f} ms ({min(graph_q):.4f}-"
+        f"{max(graph_q):.4f}); isolated launch {np.mean(iso_q):.4f} ms; "
+        f"plain {shapes['structured']['plain_ms']:.3f} ms; bound "
+        f"{shapes['structured']['bound_ms']:.5f} ms")
 
     # tiled: per-tile op, kind and start; a zeroed pad tail of 40 tiles
     starts = rng.integers(0, C - 512, size=n_tiles).astype(np.int32)
@@ -397,14 +519,13 @@ def phase_kernels(spec, dev):
         say(f"    universal/{names[op]}: {ms_u[-1]:.3f} ms kernel, "
             f"{plain_u[-1]:.3f} ms plain, bound {bounds_u[-1][0]:.4f} ms "
             f"({bounds_u[-1][1]})")
-    # universal at the per-op path's launch shape (pipeline._eval_op_idx):
-    # PER_OP_REAL real candidates over the depth <= 3 cache rows, padded
-    # to PER_OP_ROWS with rows that read row 0
-    ms_p, plain_p, trip_p, bounds_p = [], [], [], []
+    # universal at the per-op path's launch shape (pipeline._eval_op_idx
+    # launches exactly its candidates): PER_OP_ROWS candidates over the
+    # depth <= 3 cache rows
+    ms_p, plain_p, trip_p, bounds_p, graph_p, iso_p = [], [], [], [], [], []
     for op in range(n_ops):
-        ab_np = np.zeros((PER_OP_ROWS, 2), np.int32)
-        ab_np[:PER_OP_REAL] = rng.integers(0, DEPTH3_ROWS,
-                                           size=(PER_OP_REAL, 2))
+        ab_np = rng.integers(0, DEPTH3_ROWS, size=(PER_OP_ROWS, 2),
+                             dtype=np.int32)
         ab_p = torch.from_numpy(ab_np).to(dev)
         out = ce.universal(spec, cache_s, cache_f, ab_p, op, sp, fp)
         ref = ce.universal_ref(spec, cache_s, cache_f, ab_p, op, sp, fp)
@@ -414,6 +535,10 @@ def phase_kernels(spec, dev):
         err_u, ulp_u, bad_u = max(err_u, e), max(ulp_u, u), bad_u + b
         ms_p.append(time_ms(lambda: ce.universal(
             spec, cache_s, cache_f, ab_p, op, sp, fp), 50))
+        graph_p.append(graph_ms(lambda: ce.universal(
+            spec, cache_s, cache_f, ab_p, op, sp, fp), 50))
+        iso_p.append(isolated_ms(lambda: ce.universal(
+            spec, cache_s, cache_f, ab_p, op, sp, fp), "universal"))
         plain_p.append(time_ms(lambda: ce.universal_ref(
             spec, cache_s, cache_f, ab_p, op, sp, fp), 2))
         trip_p.append(round_trip_ms(lambda: ce.universal(
@@ -423,15 +548,23 @@ def phase_kernels(spec, dev):
                               ab_p[:, 1] if op >= unary else ab_p[:0, 1],
                               PER_OP_ROWS * 8,
                               PER_OP_ROWS * float(ops_of[op]))[0])
-    per_op = {"rows": PER_OP_ROWS, "real_rows": PER_OP_REAL,
-              "ms": float(np.mean(ms_p)), "ms_min": min(ms_p),
-              "ms_max": max(ms_p), "plain_ms": float(np.mean(plain_p)),
-              "round_trip_ms": float(np.mean(trip_p)),
-              "bound_ms": float(np.mean(bounds_p))}
+    shapes["universal"] = per_op = {
+        "rows": PER_OP_ROWS, "ms": float(np.mean(ms_p)), "ms_min": min(ms_p),
+        "ms_max": max(ms_p), "kernel_ms": float(np.mean(graph_p)),
+        "isolated_ms": float(np.mean(iso_p)),
+        "plain_ms": float(np.mean(plain_p)),
+        "round_trip_ms": float(np.mean(trip_p)),
+        "bound_ms": float(np.mean(bounds_p))}
+    floor = idle_floor_ms()
+    for v in shapes.values():
+        v["idle_floor_ms"] = floor
     say(f"  universal at the per-op launch shape ({PER_OP_ROWS:,} rows, "
-        f"{PER_OP_REAL} real, 18 ops): 0 packed and 0 fingerprint-jet rows "
-        f"differ; kernel {per_op['ms']:.4f} ms/launch ({per_op['ms_min']:.4f}"
-        f"-{per_op['ms_max']:.4f} over the ops), plain "
+        f"18 ops): 0 packed and 0 fingerprint-jet rows "
+        f"differ; entry point back to back {per_op['ms']:.4f} ms/launch "
+        f"({per_op['ms_min']:.4f}-{per_op['ms_max']:.4f} over the ops); "
+        f"kernel alone (CUDA graph) {np.mean(graph_p):.4f} ms "
+        f"({min(graph_p):.4f}-{max(graph_p):.4f}); isolated launch "
+        f"{np.mean(iso_p):.4f} ms (a one-element add: {floor:.4f} ms); plain "
         f"{per_op['plain_ms']:.3f} ms, round trip (index upload, kernel, "
         f"verdict copy) {per_op['round_trip_ms']:.4f} ms; bound "
         f"{per_op['bound_ms']:.5f} ms")
@@ -452,7 +585,7 @@ def phase_kernels(spec, dev):
             f"{results[k][2] / results['universal'][2]:.3f} of universal's "
             "mean (the thread-per-candidate body) in this run; partial "
             "launch: 0 packed and 0 fingerprint-jet rows differ")
-    return results, per_op
+    return results, shapes
 
 
 def phase_laplace(spec, dev):
@@ -512,21 +645,30 @@ def phase_laplace(spec, dev):
 
 
 class LaunchTimer:
-    """CUDA events around every segmented and tiled kernel launch while
-    active, and the live rows of each: ``cuda_engine._library`` hands out
-    a proxy whose two launchers record an event just before and just
-    after the launch (the entry points' checks and output allocations
-    stay outside the window)."""
+    """CUDA events around every kernel launch while active, and the live
+    rows of each: ``cuda_engine._library`` hands out a proxy whose four
+    launchers record an event just before and just after the launch (the
+    entry points' checks and output allocations stay outside the
+    window).  On a card that idles between launches, as on the engine's
+    paths, such a window holds the card's wake-up as well as the kernel;
+    with ``trace`` the kernels' own device times are also read from the
+    CUDA activity trace (CUPTI, through ``torch.profiler``)."""
 
     LAUNCHERS = {"pde_screen_segmented": ("segmented", 7),
-                 "pde_screen_tiled": ("tiled", 8)}  # kernel, index of n
+                 "pde_screen_structured": ("structured", 9),
+                 "pde_screen_tiled": ("tiled", 8),
+                 "pde_screen_universal": ("universal", 7)}  # index of n
 
-    def __init__(self):
+    def __init__(self, trace: bool = False):
         from pde_engine_tpu_torch.parallel import cuda_engine
         self.ce = cuda_engine
         self.orig = cuda_engine._library
-        self.events = {k: [] for k in GROUP_KERNELS}
-        self.rows = {k: 0 for k in GROUP_KERNELS}
+        self.events = {k: [] for k in KERNELS}
+        self.rows = {k: 0 for k in KERNELS}
+        self.trace, self.trace_error = None, None
+        if trace:
+            from torch.profiler import ProfilerActivity, profile
+            self.trace = profile(activities=[ProfilerActivity.CUDA])
 
     def _proxy(self, lib):
         import torch
@@ -553,9 +695,17 @@ class LaunchTimer:
 
     def __enter__(self):
         self.ce._library = lambda spec: self._proxy(self.orig(spec))
+        if self.trace is not None:
+            try:
+                self.trace.__enter__()
+            except (RuntimeError, AssertionError) as e:
+                # no activity trace here: device times not measured
+                self.trace, self.trace_error = None, str(e)
         return self
 
     def __exit__(self, *exc):
+        if self.trace is not None:
+            self.trace.__exit__(*exc)
         self.ce._library = self.orig
 
     def ms(self):
@@ -567,6 +717,49 @@ class LaunchTimer:
     def per_launch(self, kernel):
         """[(live rows, kernel ms)] of each launch, in order."""
         return [(n, a.elapsed_time(b)) for a, b, n in self.events[kernel]]
+
+    def device(self, kernel):
+        """[(live rows, device ms)] of each launch from the activity trace,
+        in order, or None (not measured) unless the trace holds exactly
+        the launches the events saw."""
+        from torch.autograd import DeviceType
+        if self.trace is None or not self.events[kernel]:
+            return None
+        got = sorted((e for e in self.trace.events()
+                      if e.device_type == DeviceType.CUDA
+                      and f"{kernel}_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+        if len(got) != len(self.events[kernel]):
+            return None
+        return [(n, e.time_range.elapsed_us() / 1e3)
+                for (_, _, n), e in zip(self.events[kernel], got)]
+
+    def device_ms(self, kernel):
+        """Summed device ms of ``kernel``'s launches, or None."""
+        pairs = self.device(kernel)
+        return None if pairs is None else sum(ms for _, ms in pairs)
+
+
+SIZE_EDGES = (64, 512, 2048, 8192)  # launch-size classes of by_size
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def by_size(pairs):
+    """Launches, rows and summed kernel ms of (rows, ms) launches, by
+    launch size: up to 64 rows, 65-512, 513-2,048, 2,049-8,192, more."""
+    out = {}
+    for n, ms in pairs:
+        k = next((f"<={e}" for e in SIZE_EDGES if n <= e),
+                 f">{SIZE_EDGES[-1]}")
+        t = out.setdefault(k, [0, 0, 0.0])
+        t[0] += 1
+        t[1] += n
+        t[2] += ms
+    return {k: {"launches": a, "rows": b, "ms": c}
+            for k, (a, b, c) in out.items()}
 
 
 def ptxas_report(log: str):
@@ -811,19 +1004,20 @@ def main() -> int:
 
     say("[3/8] kernels vs plain torch on the card (262,144-candidate "
         "superbatches, cache of 1,048,576 seeded rows):")
-    kres, per_op_launch = phase_kernels(spec, dev)
+    kres, shapes = phase_kernels(spec, dev)
     phase_laplace(spec_l, dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         d4, d5, d6, d7, d8 = (os.path.join(tmp, f"p{k}") for k in range(4, 9))
         for d in (d4, d5, d6, d7, d8):
             os.makedirs(d)
-        phases = {}
+        phases, timers = {}, {}
         say("[4/8] main path: force_free --max-depth 4 --device cuda")
-        with LaunchTimer() as timer:
+        with LaunchTimer(trace=True) as timer:
             ce.reset_launch_counts()
             rep4 = run_cli([], d4)
             phases["main"] = launches = dict(ce.LAUNCHES)
+        timers["main"] = timer
         path_ms = timer.ms()
         c4 = check_main(rep4, card)
         disp4 = rep4["dispatches"]
@@ -846,16 +1040,23 @@ def main() -> int:
                 f"for {cands:,} candidates ({rows - cands:,} pad rows"
                 + (", each in the last 512-row tile of a run"
                    if k == "tiled" else "") + "); kernel "
-                f"{path_ms[k]:.4f} ms summed (CUDA events); per launch "
-                "(rows, ms): " + ", ".join(
+                f"{path_ms[k]:.4f} ms summed (CUDA events), "
+                f"{fmt_ms(timer.device_ms(k))} ms of device time (activity "
+                "trace); per launch (rows, ms): " + ", ".join(
                     f"({n:,}, {ms:.4f})" for n, ms in timer.per_launch(k)))
+        if timer.trace_error:
+            say(f"  no activity trace, device times not measured: "
+                f"{timer.trace_error}")
         say(f"  segmented + tiled on the main path: "
             f"{sum(path_ms.values()):.4f} ms of kernel time over "
             f"{sum(timer.rows.values()):,} live rows")
         say("[5/8] structured coverage: --batch-size 4096")
-        ce.reset_launch_counts()
-        rep5 = run_cli(["--batch-size", "4096", "--no-report-families"], d5)
-        phases["batch_4096"] = launches5 = dict(ce.LAUNCHES)
+        with LaunchTimer(trace=True) as timer5:
+            ce.reset_launch_counts()
+            rep5 = run_cli(["--batch-size", "4096", "--no-report-families"],
+                           d5)
+            phases["batch_4096"] = launches5 = dict(ce.LAUNCHES)
+        timers["batch_4096"] = timer5
         disp5 = rep5["dispatches"]
         c5 = counts_of(rep5)
         for k in ("segmented", "structured", "tiled"):
@@ -889,12 +1090,21 @@ def main() -> int:
                 fail(f"depth {d}: --batch-size 4096 valid {v} vs {c4[d][1]}")
         say(f"  counts {c5}; valid within {VALID_SPREAD:.1%} of phase 4; "
             f"dispatches {disp5}; wall {rep5['wall_seconds']:.1f} s")
+        st5 = timer5.per_launch("structured")
+        say(f"  structured: {len(st5)} launches, {timer5.rows['structured']:,}"
+            f" rows, kernel {timer5.ms()['structured']:.4f} ms summed (CUDA "
+            f"events), {fmt_ms(timer5.device_ms('structured'))} ms of "
+            "device time (activity trace); per launch (rows, ms): "
+            + ", ".join(
+                f"({n:,}, {ms:.4f})" for n, ms in st5))
 
         say("[6/8] per-op path: DiscoveryRun(force_free, SearchConfig("
             "max_depth=4, use_segmented=False), device='cuda')")
-        ce.reset_launch_counts()
-        rep6, _ = api_run(d6, 4, use_segmented=False)
-        phases["per_op"] = launches6 = dict(ce.LAUNCHES)
+        with LaunchTimer(trace=True) as timer6:
+            ce.reset_launch_counts()
+            rep6, _ = api_run(d6, 4, use_segmented=False)
+            phases["per_op"] = launches6 = dict(ce.LAUNCHES)
+        timers["per_op"] = timer6
         c6 = counts_of(rep6)
         stage_lines(rep6, card)
         if len(rep6["paper_solutions_found"]) != 7:
@@ -925,6 +1135,18 @@ def main() -> int:
         say(f"  7/7 knowns; counts {c6}; within {VALID_SPREAD:.1%} of "
             f"phase 4; dispatches {rep6['dispatches']}; launches "
             f"{launches6}; wall {rep6['wall_seconds']:.1f} s")
+        lr6 = rep6["launched_rows"]["universal"]
+        if not (timer6.rows["universal"] == lr6["rows"] == lr6["candidates"]):
+            fail(f"universal: {timer6.rows['universal']} rows launched, the "
+                 f"engine counts {lr6}: want exactly its candidates")
+        say(f"  universal: {launches6['universal']} launches, "
+            f"{lr6['rows']:,} rows launched for {lr6['candidates']:,} "
+            f"candidates; kernel {timer6.ms()['universal']:.4f} ms summed "
+            f"(CUDA events), {fmt_ms(timer6.device_ms('universal'))} ms of "
+            "device time (activity trace); by launch size, events: "
+            + json.dumps(by_size(timer6.per_launch("universal")))
+            + "; device: " + json.dumps(by_size(
+                timer6.device("universal") or [])))
 
         say("[7/8] resume: CLI --max-depth 3, then --resume-run <id> "
             "--max-depth 4")
@@ -953,7 +1175,9 @@ def main() -> int:
         phases["no_snapshot_part"] = dict(ce.LAUNCHES)
         if os.path.exists(os.path.join(d8, "run.db.jets.d")):
             fail("snapshot_jets=False wrote a jet snapshot")
-        rep8, seeded = api_run(d8, 4, resume_of=rep8a["run_id"], **cfg8)
+        with LaunchTimer(trace=True) as timer8:
+            rep8, seeded = api_run(d8, 4, resume_of=rep8a["run_id"], **cfg8)
+        timers["no_snapshot_resume"] = timer8
         phases["no_snapshot_replay"] = seeded
         phases["no_snapshot_resumed"] = dict(ce.LAUNCHES)
         if seeded["universal"] <= 0:
@@ -964,31 +1188,52 @@ def main() -> int:
             f"launches: {phases['no_snapshot_part']['universal']} in the "
             f"depth-3 run, {seeded['universal']} replaying the cache, "
             f"{phases['no_snapshot_resumed']['universal']} in depth 4; "
-            f"wall {rep8['wall_seconds']:.1f} s")
+            f"wall {rep8['wall_seconds']:.1f} s; universal kernel "
+            f"{timer8.ms()['universal']:.4f} ms summed over the replay and "
+            f"depth 4 (CUDA events), "
+            f"{fmt_ms(timer8.device_ms('universal'))} ms of device time "
+            f"(activity trace), {timer8.rows['universal']:,} rows; by launch "
+            "size, events: "
+            + json.dumps(by_size(timer8.per_launch("universal")))
+            + "; device: " + json.dumps(by_size(
+                timer8.device("universal") or [])))
 
-    own_path = {"segmented": "main", "structured": "main", "tiled": "main",
-                "universal": "per_op"}
+    # every universal launch of phases 6 and 8, too long for the output
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_launches.json"),
+              "w") as fh:
+        json.dump({ph: {"events": timers[ph].per_launch("universal"),
+                        "device": timers[ph].device("universal")}
+                   for ph in ("per_op", "no_snapshot_resume")}, fh)
     kernels = []
     for k, (err, ulp, ms, plain, _, _, b_ms, b_by) in kres.items():
         counts = {ph: n[k] for ph, n in phases.items()}
-        if not any(counts.values()):
-            fail(f"kernel {k} was launched on no path: {counts}")
+        own = OWN_PATH[k]
+        if not counts[own]:
+            fail(f"kernel {k} was not launched on its path ({own}): "
+                 f"{counts}")
         kernels.append({
             "name": k, "route": "cuda",
             "source": "pde_engine_tpu_torch/csrc/screen_kernel.cu",
-            "replaces": REPLACES[k], "launches": counts[own_path[k]],
+            "replaces": REPLACES[k], "launches": counts[own],
             "launches_by_phase": counts,
             "max_abs_err": err, "max_ulp_exp_log": ulp,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
+            "bound_by": b_by, "library_ms": None,
+            "path_phase": own, "path_ms": timers[own].ms()[k],
+            "path_device_ms": timers[own].device_ms(k),
+            "live_rows": timers[own].rows[k]})
+        pairs = timers[own].per_launch(k)
         if k == "universal":
-            kernels[-1]["per_op_launch"] = per_op_launch
-        if k in GROUP_KERNELS:
-            kernels[-1].update(path_ms=path_ms[k], live_rows=timer.rows[k])
-        if counts[own_path[k]] == 0:
-            kernels[-1]["note"] = (
-                "not on the default depth-4 path: every contiguous run is "
-                "shorter than a 262,144 superbatch")
+            kernels[-1]["path"] = by_size(pairs)
+            kernels[-1]["path_ms_no_snapshot_resume"] = \
+                timers["no_snapshot_resume"].ms()[k]
+            kernels[-1]["path_device_ms_no_snapshot_resume"] = \
+                timers["no_snapshot_resume"].device_ms(k)
+        else:
+            kernels[-1]["path"] = [[n, round(t, 5)] for n, t in pairs]
+        if k in shapes:
+            kernels[-1]["path_shape"] = shapes[k]
     say(f"total {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

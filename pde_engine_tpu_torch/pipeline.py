@@ -857,17 +857,16 @@ class DiscoveryEngine:
     def _eval_op_idx(self, op_name: str, a_idx: np.ndarray,
                      b_idx: Optional[np.ndarray]):
         """One ``universal`` launch: op ``op_name`` over the operand rows
-        ``(a_idx[i], b_idx[i])``.  The batch pads to one of two shapes
-        (8,192 or ``batch_size``, at least ``n``), rounded up to the
-        512-row tile, as in the JAX package; pad rows read row 0 and fall
-        outside every caller's ``[0, n)`` window."""
+        ``(a_idx[i], b_idx[i])``, exactly ``n`` rows (a unary op's b rows
+        read row 0 and are not used).  The JAX package pads the launch to
+        8,192 rows or ``batch_size`` to keep its jit traces to two shapes
+        per op; the CUDA kernel has no trace cache and masks its own
+        ragged edge, so every result here has ``n`` rows."""
         n = a_idx.size
-        npad = 8192 if n <= 8192 else self.config.batch_size
-        npad = -(-max(npad, n) // TILE) * TILE
-        ab = np.zeros((npad, 2), np.int32)
-        ab[:n, 0] = a_idx
+        ab = np.zeros((n, 2), np.int32)
+        ab[:, 0] = a_idx
         if b_idx is not None:
-            ab[:n, 1] = b_idx
+            ab[:, 1] = b_idx
         t0 = time.perf_counter()
         packed, out_s, out_f = cuda_engine.universal(
             self._spec, self.cache.screen, self.cache.fp, self._dev(ab),
@@ -875,7 +874,7 @@ class DiscoveryEngine:
         self.device_seconds += time.perf_counter() - t0
         self.candidates_screened += n
         self.universal_dispatches += 1
-        self._tally_launch("universal", npad, [n])
+        self._tally_launch("universal", n, [n])
         return packed, out_s, out_f
 
     def _run_depth_per_op(self, depth: int, max_depth: int,
@@ -1210,8 +1209,8 @@ class DiscoveryEngine:
     def launched_rows(self) -> Dict[str, Dict[str, int]]:
         """Per kernel: the rows its launches screened, the candidates
         among them, and the rows of the 512-row tiles that hold a
-        candidate.  ``segmented`` launches exactly its candidates, and
-        ``tiled`` exactly those tiles."""
+        candidate.  ``segmented`` and ``universal`` launch exactly their
+        candidates, and ``tiled`` exactly those tiles."""
         return {k: dict(zip(("rows", "candidates", "tile_rows"), v))
                 for k, v in self.launch_rows.items()}
 

@@ -96,6 +96,21 @@ def test_per_op_depth3_counts_match_jax(engines):
     assert disp["segmented"] == disp["structured"] == disp["tiled"] == 0
 
 
+def test_per_op_launches_exactly_its_candidates(engines):
+    """Each per-op ``universal`` launch holds exactly its candidates (no
+    pad to 8,192 rows or ``batch_size``), and the counts are the port's
+    depth-3 counts."""
+    port = engines["per_op"]
+    lr = port.launched_rows()
+    assert lr["universal"]["rows"] == lr["universal"]["candidates"]
+    assert lr["universal"]["candidates"] == sum(
+        s.candidates for s in port.stats[1:])
+    assert all(lr[k]["rows"] == 0 for k in ("segmented", "structured",
+                                            "tiled"))
+    assert [(s.unique, s.valid) for s in port.stats] == \
+        [(5, 4), (153, 93), (8976, 2153)]
+
+
 def test_jax_snapshot_round_trip_and_superbatch(engines):
     """The JAX cache loads bit for bit; one depth-3 superbatch screened
     from it by segmented_ref matches the JAX segmented kernel's packed
