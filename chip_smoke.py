@@ -10,8 +10,10 @@ Phases, one line each (any failure exits non-zero):
 2. build    — nvcc-builds the force_free and laplace screen kernels from
               the checkout's sources into build/torch_ext/ (one nvcc per
               build, both started together); prints each entry point's
-              registers, shared memory and spills (-Xptxas -v) and the
-              dynamic shared memory of the two candidate-group kernels;
+              registers, shared memory and spills (-Xptxas -v), its
+              dynamic shared memory and resident blocks per SM, and the
+              candidates per block that structured and universal take
+              at their paths' launch shapes;
 3. kernels  — each of the four kernels (segmented, structured, tiled,
               universal) against its plain torch twin on the card, on
               262,144-candidate launches over a seeded random cache of
@@ -20,15 +22,17 @@ Phases, one line each (any failure exits non-zero):
               roofline bound of the same work; segmented and tiled also
               on a partial launch (segmented: 19,021 rows in op runs of
               1-199 rows, so runs end inside warps; tiled: 37 tiles of
-              512) and on the laplace build (order 2), full and
-              partial; structured also at its path's launch shape (4,096
-              rows); universal also at the per-op path's launch shape
-              (502 rows, the mean of a depth-4 per-op launch), with the
-              host round trip of one such launch; at those shapes each
-              is timed three ways: the entry point called back to back
-              (host work included), the kernel alone (50 launches
-              replayed from a CUDA graph), and an isolated launch after
-              the card idled 5 ms, as the paths launch;
+              512); structured also at its path's launch shape (4,096
+              rows), runs ending at the cache's last row included;
+              universal also at the per-op path's launch shape (502
+              rows, the mean of a depth-4 per-op launch), with the host
+              round trip of one such launch, and at 1 and 37 rows; at
+              the two path shapes each is timed three ways: the entry
+              point called back to back (host work included), the
+              kernel alone (50 launches replayed from a CUDA graph), and
+              an isolated launch after the card idled 5 ms, as the paths
+              launch; all four again on the laplace build (order 2),
+              full and small launches;
 4. main     — ``python -m pde_engine_tpu_torch --problem force_free
               --max-depth 4 --device cuda`` through ``cli.main``: 7/7
               known solutions, exact depth-1/2 counts, depth-3/4 counts
@@ -109,6 +113,7 @@ SUPER = 262144
 PER_OP_ROWS = 502    # the per-op path's mean launch at depth 4 (723,618
                      # candidates / 1,440 launches of pipeline._eval_op_idx)
 STRUCT_ROWS = 4096   # a structured launch at --batch-size 4096
+RAGGED_ROWS = (1, 37)  # universal launches whose last block ends in a warp
 DEPTH3_ROWS = 9134   # cache rows of the depth <= 3 uniques (5 + 153 + 8,976)
 EXP_LOG_OPS = ("exp", "exp_neg", "log", "exp_mul", "log_mul")
 ULP_BOUND = 4
@@ -126,7 +131,6 @@ OUT_BYTES = 4 * (120 + 18 + 3)  # jets, fingerprint jets, packed verdicts
 PARTIAL_TILES = 37  # tiles of the partial tiled launch
 PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
-KERNELS = ("segmented", "structured", "tiled", "universal")
 OWN_PATH = {"segmented": "main", "structured": "batch_4096",
             "tiled": "main", "universal": "per_op"}
 
@@ -400,6 +404,8 @@ def phase_kernels(spec, dev):
         for big in (("a",) if op < unary else ("a", "b")):
             big0 = int(rng.integers(0, C - SUPER))
             const = int(rng.integers(0, C))
+            if op == 0:  # the run ends at the cache's last row
+                big0 = C - SUPER
             out = ce.structured(spec, cache_s, cache_f, const, big0, op, sp,
                                 fp, big, SUPER)
             ref = ce.structured_ref(spec, cache_s, cache_f, const, big0, op,
@@ -429,6 +435,8 @@ def phase_kernels(spec, dev):
         for big in (("a",) if op < unary else ("a", "b")):
             big0 = int(rng.integers(0, C - STRUCT_ROWS))
             const = int(rng.integers(0, C))
+            if op % 2 == 0:  # the run ends at the cache's last row
+                big0 = C - STRUCT_ROWS
             a = (const, big0, op, sp, fp, big, STRUCT_ROWS)
             e, u, b = check(f"structured[{big}, {STRUCT_ROWS} rows]", names,
                             np.full(STRUCT_ROWS, op),
@@ -460,7 +468,9 @@ def phase_kernels(spec, dev):
         "plain_ms": float(np.mean(plain_q)),
         "bound_ms": float(np.mean(bounds_q))}}
     say(f"  structured at its path's launch shape ({STRUCT_ROWS:,} rows, "
-        f"every op and kind): 0 packed and 0 fingerprint-jet rows differ; "
+        f"every op and kind; the runs of even ops, and of op 0 at "
+        f"{SUPER:,} rows, end at the cache's last row): 0 packed and 0 "
+        "fingerprint-jet rows differ; "
         f"entry point back to back {shapes['structured']['ms']:.4f} "
         f"ms/launch ({min(ms_q):.4f}-{max(ms_q):.4f}); kernel alone (CUDA "
         f"graph) {np.mean(graph_q):.4f} ms ({min(graph_q):.4f}-"
@@ -568,9 +578,23 @@ def phase_kernels(spec, dev):
         f"{per_op['plain_ms']:.3f} ms, round trip (index upload, kernel, "
         f"verdict copy) {per_op['round_trip_ms']:.4f} ms; bound "
         f"{per_op['bound_ms']:.5f} ms")
+    # ragged launches: the last block's rows end inside a warp
+    for rows in RAGGED_ROWS:
+        for op in range(n_ops):
+            ab_r = torch.from_numpy(rng.integers(0, C, size=(rows, 2),
+                                                 dtype=np.int32)).to(dev)
+            e, u, b = check(f"universal[{rows} rows]", names,
+                            np.full(rows, op),
+                            ce.universal(spec, cache_s, cache_f, ab_r, op,
+                                         sp, fp),
+                            ce.universal_ref(spec, cache_s, cache_f, ab_r,
+                                             op, sp, fp))
+            err_u, ulp_u, bad_u = max(err_u, e), max(ulp_u, u), bad_u + b
+    say(f"  universal at {', '.join(map(str, RAGGED_ROWS))} rows, 18 ops: "
+        "0 packed and 0 fingerprint-jet rows differ")
     results["universal"] = (
         err_u, ulp_u, float(np.mean(ms_u)), float(np.mean(plain_u)),
-        n_ops * (SUPER + PER_OP_ROWS), bad_u,
+        n_ops * (SUPER + PER_OP_ROWS + sum(RAGGED_ROWS)), bad_u,
         float(np.mean([b for b, _ in bounds_u])),
         "bytes" if all(by == "bytes" for _, by in bounds_u)
         else "operations")
@@ -581,17 +605,15 @@ def phase_kernels(spec, dev):
             f"{m:.3f} ms/launch kernel vs {p:.3f} ms plain; bound "
             f"{b_ms:.4f} ms ({b_by}), {b_ms / m:.1%} of it reached")
     for k in GROUP_KERNELS:
-        say(f"  {k}: {results[k][2]:.4f} ms, "
-            f"{results[k][2] / results['universal'][2]:.3f} of universal's "
-            "mean (the thread-per-candidate body) in this run; partial "
-            "launch: 0 packed and 0 fingerprint-jet rows differ")
+        say(f"  {k}: {results[k][2]:.4f} ms; partial launch: 0 packed and "
+            "0 fingerprint-jet rows differ")
     return results, shapes
 
 
 def phase_laplace(spec, dev):
-    """Phase 3 on the laplace build (order 2, T = 6): segmented and tiled
-    against their plain twins on a full and a partial launch, all 18
-    ops."""
+    """Phase 3 on the laplace build (order 2, T = 6): the four kernels
+    against their plain twins on full launches and on partial or small
+    ones, all 18 ops."""
     import numpy as np
     import torch
 
@@ -637,9 +659,28 @@ def phase_laplace(spec, dev):
                      rows_op[:nt * 512],
                      ce.tiled(spec, cache_s, cache_f, *tl),
                      ce.tiled_ref(spec, cache_s, cache_f, *tl), T)[2]
+    for op in range(n_ops):
+        for rows in (SUPER, PER_OP_ROWS) + RAGGED_ROWS:
+            u = (ab[:rows], op, sp, fp)
+            bad += check(f"laplace universal[{rows} rows]", names,
+                         np.full(rows, op),
+                         ce.universal(spec, cache_s, cache_f, *u),
+                         ce.universal_ref(spec, cache_s, cache_f, *u), T)[2]
+        for big in (("a",) if op < ce.N_UNARY else ("a", "b")):
+            for rows in (SUPER, STRUCT_ROWS):  # both runs end at row C - 1
+                s_args = (int(rng.integers(0, C)), C - rows, op, sp, fp, big,
+                          rows)
+                bad += check(
+                    f"laplace structured[{big}, {rows} rows]", names,
+                    np.full(rows, op),
+                    ce.structured(spec, cache_s, cache_f, *s_args),
+                    ce.structured_ref(spec, cache_s, cache_f, *s_args), T)[2]
     say(f"  laplace build (order 2): segmented ({SUPER:,} rows; "
-        f"{PARTIAL_ROWS:,} in ragged op runs) and tiled ({n_tiles} and "
-        f"{PARTIAL_TILES} tiles), all 18 ops: 0 packed and 0 "
+        f"{PARTIAL_ROWS:,} in ragged op runs), tiled ({n_tiles} and "
+        f"{PARTIAL_TILES} tiles), universal ({SUPER:,}, {PER_OP_ROWS} and "
+        f"{', '.join(map(str, RAGGED_ROWS))} rows) and structured "
+        f"({SUPER:,} and {STRUCT_ROWS:,} rows, both kinds, runs ending at "
+        "the cache's last row), all 18 ops: 0 packed and 0 "
         f"fingerprint-jet rows differ, {bad} screen-jet rows differ "
         "(exp/log ops only)")
 
@@ -663,8 +704,8 @@ class LaunchTimer:
         from pde_engine_tpu_torch.parallel import cuda_engine
         self.ce = cuda_engine
         self.orig = cuda_engine._library
-        self.events = {k: [] for k in KERNELS}
-        self.rows = {k: 0 for k in KERNELS}
+        self.events = {k: [] for k in cuda_engine.KERNELS}
+        self.rows = {k: 0 for k in cuda_engine.KERNELS}
         self.trace, self.trace_error = None, None
         if trace:
             from torch.profiler import ProfilerActivity, profile
@@ -991,16 +1032,25 @@ def main() -> int:
         "libraries together (nvcc sm_90a, -fmad=false, one process each)")
     for tag, sp in (("force_free", spec), ("laplace", spec_l)):
         table, spills = ptxas_report(build_log(ce.header_text(sp)))
-        dyn = (ctypes.c_int * 3)()
-        ce._library(sp).pde_screen_group_smem(ctypes.addressof(dyn))
+        if sp is spec:
+            ptxas_ff = table
+        geo = ce.geometry(sp)
         say(f"  {tag}: " + "; ".join(
             f"{k} {r} registers, {sm} B static shared, spills {st}/{ld} B "
-            "(stores/loads)" for k, (r, sm, st, ld) in table.items())
-            + f"; dynamic shared per block: segmented {dyn[0]:,} B, tiled "
-            f"{dyn[1]:,} B; {dyn[2]} lanes per candidate group")
+            f"(stores/loads), {geo['smem'][k]:,} B dynamic shared, "
+            f"{geo['blocks_per_sm'][k]} blocks per SM"
+            for k, (r, sm, st, ld) in table.items())
+            + f"; {geo['sms']} SMs; {geo['lanes']} lanes per candidate "
+            f"group, {geo['step']} candidates per step")
         spilled = {f: v for f, v in spills.items() if any(v)}
         if spilled:
             say(f"  {tag}: functions that spill: {spilled}")
+    say("  candidates per block (blocks): " + "; ".join(
+        f"{k} at {n:,} rows {ce.block_cands(spec, k, n)} "
+        f"({-(-n // ce.block_cands(spec, k, n)):,})"
+        for k, n in (("universal", PER_OP_ROWS), ("universal", SUPER),
+                     ("structured", STRUCT_ROWS), ("structured", SUPER)))
+        + "; segmented and tiled 128")
 
     say("[3/8] kernels vs plain torch on the card (262,144-candidate "
         "superbatches, cache of 1,048,576 seeded rows):")
@@ -1233,7 +1283,12 @@ def main() -> int:
         else:
             kernels[-1]["path"] = [[n, round(t, 5)] for n, t in pairs]
         if k in shapes:
-            kernels[-1]["path_shape"] = shapes[k]
+            kernels[-1]["path_shape"] = dict(
+                shapes[k], cands_per_block=ce.block_cands(spec, k,
+                                                     shapes[k]["rows"]))
+        regs, _, st, ld = ptxas_ff[k]
+        kernels[-1].update(registers=regs, spill_bytes=st + ld,
+                           dyn_smem=ce.geometry(spec)["smem"][k])
     say(f"total {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

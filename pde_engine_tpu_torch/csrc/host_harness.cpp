@@ -1,9 +1,9 @@
 // Host (g++) build of the screen body, for the CPU tests: the same emitted
 // jet algebra and hand-written verdict code the CUDA kernels run, called
-// through ctypes on pre-gathered operand rows, both as one thread per
-// candidate (screen_candidate: structured and universal kernels) and as
-// the candidate group of the segmented and tiled kernels, its warp
-// shuffles emulated in lane order.  Build with
+// through ctypes on pre-gathered operand rows, both as the candidate group
+// that all four CUDA kernels run, its warp shuffles emulated in lane
+// order, and as one thread per candidate (screen_candidate, built only
+// here), the reference the group is held bit-equal to.  Build with
 // g++ -O2 -std=c++17 -ffp-contract=off -fPIC -shared (see
 // pde_engine_tpu_torch/utils/cuda_build.py).
 
@@ -32,7 +32,7 @@ extern "C" void host_screen_rows(int n, const int* ops, const float* a_s,
                      out_f + i * FW, packed + 3 * i);
 }
 
-// Candidate i as the segmented and tiled kernels screen it: group_lane on
+// Candidate i as the CUDA kernels screen it: group_lane on
 // each of the JET_G lanes, then the kernels' __shfl_xor_sync butterfly
 // (lane l merges with lane l ^ m, m = 1, 2, 4, ...) and the FNV gather
 // of lane p's three keys for p = 0..F-1, read from lane 0.

@@ -8,11 +8,12 @@
 // snap (search.snap_fp_jets), the PDE residual and its scale, and the
 // fused verdict + compact packing (_verdict_pack_tile).  The body comes
 // in per-point pieces: one screen point (screen_point), one fingerprint
-// point (fp_point) and the verdict finish (verdict_finish).
-// screen_candidate runs them one after another in one thread (structured
-// and universal kernels, host harness); group_lane runs one screen and
-// one fingerprint point per lane of a candidate group (segmented and
-// tiled kernels, and the host harness's emulation of them).
+// point (fp_point) and the verdict finish (verdict_finish).  group_lane
+// runs one screen and one fingerprint point per lane of a candidate
+// group (all four CUDA kernels, and the host harness's emulation of
+// them); screen_candidate, built for the host harness only, runs them
+// one after another in one thread, the reference the group body is held
+// bit-equal to.
 //
 // The jet algebra itself is emitted from the shared Python jet code by
 // pde_engine_tpu_torch/ops/cuda_emit.py into "jet_ops.h" (jet_apply_s,
@@ -28,11 +29,9 @@
 
 #ifdef __CUDACC__
 #define JET_FN static __device__ __forceinline__
-#define SCREEN_FN static __device__ __noinline__
 #define JET_UNROLL _Pragma("unroll")
 #else
 #define JET_FN static inline
-#define SCREEN_FN static
 #define JET_UNROLL
 #endif
 
@@ -81,7 +80,7 @@ JET_FN uint32_t quantize(float v) {
 // the merges (the group kernels' reduction in screen_kernel.cu says
 // why), so the pieces can run one after another in one thread
 // (screen_candidate) or side by side on the lanes of a candidate group
-// (segmented_kernel, tiled_kernel).  Only the FNV folds depend on order.
+// (the CUDA kernels).  Only the FNV folds depend on order.
 
 // Verdict parts of some screen points.
 struct ScreenAcc {
@@ -184,14 +183,15 @@ JET_FN void verdict_finish(ScreenAcc s, FpAcc f, float rtol, uint32_t ha,
   packed[2] = ((f2u(rel_max) + 0xFFFFu) & 0xFFFF0000u) | flags;
 }
 
-// One candidate in one thread: a = (as, af), b = (bs, bf) are its
-// operands' cache rows (point-major, P*T screen and F*3 fingerprint
-// floats).  Writes the screen jets (os), snapped fingerprint jets (of)
-// and the three packed verdict words.
-SCREEN_FN void screen_candidate(int op, const float* as, const float* af,
-                                const float* bs, const float* bf,
-                                const float* spoints, float rtol, float* os,
-                                float* of, uint32_t* packed) {
+#ifndef __CUDACC__
+// One candidate in one thread (host build only): a = (as, af), b = (bs,
+// bf) are its operands' cache rows (point-major, P*T screen and F*3
+// fingerprint floats).  Writes the screen jets (os), snapped fingerprint
+// jets (of) and the three packed verdict words.
+static void screen_candidate(int op, const float* as, const float* af,
+                             const float* bs, const float* bf,
+                             const float* spoints, float rtol, float* os,
+                             float* of, uint32_t* packed) {
   ScreenAcc s = screen_acc0();
   for (int p = 0; p < JET_P; ++p)
     s = screen_merge(s, screen_point(op, as + p * JET_T, bs + p * JET_T,
@@ -207,6 +207,7 @@ SCREEN_FN void screen_candidate(int op, const float* as, const float* af,
   }
   verdict_finish(s, f, rtol, ha, hb, packed);
 }
+#endif
 
 // Lanes per candidate in the group body: the smallest power of two that
 // is at least max(JET_P, JET_F) (8 for every problem of the repo).

@@ -19,6 +19,11 @@ On a CUDA tensor each launches its hand-written kernel
 torch ``*_ref`` twin.  The choice follows the tensors' device only:
 nothing catches a build or launch error and falls back.  ``LAUNCHES``
 counts kernel launches per entry point.
+
+``structured`` and ``universal`` size their blocks to the launch
+(:func:`candidates_per_block`): a block's steps run one after another,
+so a launch that cannot fill the card runs in fewer candidates per
+block.
 """
 
 from __future__ import annotations
@@ -38,15 +43,33 @@ from .incremental import OP_ORDER
 
 TILE = 512
 N_UNARY = sum(1 for nm in OP_ORDER if nm in UNARY_NAMES)
+KERNELS = ("segmented", "structured", "tiled", "universal")
+# candidates per block the group kernels take: 1, 2, 4 or 8 steps of 16
+# (128 threads, 8 lanes per candidate); each divides the 512-row tile
+GROUP_CANDS = (16, 32, 64, 128)
 
 # kernel launches per entry point (read and reset by chip_smoke.py)
-LAUNCHES: Dict[str, int] = {"segmented": 0, "structured": 0, "tiled": 0,
-                            "universal": 0}
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def candidates_per_block(n: int, slots: int, step: int = 16) -> int:
+    """Candidates per block of a ``structured`` or ``universal`` launch of
+    ``n`` rows on a card that holds ``slots`` blocks at once (SMs x
+    resident blocks per SM): the largest of :data:`GROUP_CANDS` (whole
+    steps of ``step`` candidates) whose grid still fills the slots, else
+    the smallest.  262,144 rows on an H100 (528 slots) take 128; the
+    per-op path's launches of about 500 rows and structured's of 4,096
+    take 16, one step per block."""
+    sizes = [c for c in GROUP_CANDS if c % step == 0]
+    for c in reversed(sizes):
+        if -(-n // c) >= slots:
+            return c
+    return sizes[0]
 
 
 @dataclass(frozen=True)
@@ -103,6 +126,31 @@ def _library(spec: ScreenSpec):
         raise RuntimeError(f"screen library built for {tuple(dims)}, "
                            f"spec needs {want}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(spec: ScreenSpec) -> dict:
+    """The kernels' launch geometry on the current card, read once from
+    the library: per kernel its dynamic shared memory per block
+    (``smem``) and the blocks resident on one SM at that shared memory
+    (``blocks_per_sm``), the card's ``sms``, the ``lanes`` per candidate
+    group and the candidates per ``step``."""
+    import ctypes
+    out = (ctypes.c_int * 11)()
+    _raise_on(_library(spec).pde_screen_geometry(ctypes.addressof(out)),
+              "geometry query")
+    v = list(out)
+    return {"smem": dict(zip(KERNELS, v[0:4])),
+            "blocks_per_sm": dict(zip(KERNELS, v[4:8])), "sms": v[8],
+            "lanes": v[9], "step": v[10]}
+
+
+def block_cands(spec: ScreenSpec, kernel: str, n: int) -> int:
+    """Candidates per block of a launch of ``n`` rows of ``kernel`` on
+    the current card (:func:`candidates_per_block`)."""
+    g = geometry(spec)
+    return candidates_per_block(n, g["sms"] * g["blocks_per_sm"][kernel],
+                                g["step"])
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +252,8 @@ def _check_cache(spec: ScreenSpec, cache_s, cache_f, spoints):
         raise ValueError("empty jet cache")
     if cache_s.data_ptr() % 16 or cache_f.data_ptr() % 16:
         raise ValueError("the jet cache must be 16-byte aligned (the "
-                         "segmented and tiled kernels copy its rows in "
-                         "16-byte and 8-byte chunks)")
+                         "kernels copy its rows in 16-byte and 8-byte "
+                         "chunks)")
     return cap
 
 
@@ -245,7 +293,8 @@ def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
 def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
                op_id: int, spoints, fpoints, big: str, n_batch: int):
     """One op over a constant row and a contiguous run
-    (make_pallas_structured_kernel)."""
+    (make_pallas_structured_kernel); ``n_batch`` a multiple of the
+    512-row tile, in blocks sized to the launch."""
     if cache_s.device.type == "cpu":
         return structured_ref(spec, cache_s, cache_f, const_uid, big0,
                               op_id, spoints, fpoints, big, n_batch)
@@ -256,13 +305,15 @@ def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
         raise ValueError(f"structured run [{big0}, {big0 + n_batch}) or "
                          f"constant row {const_uid} outside {cap} rows")
     packed, jets, fj = _outputs(spec, n_batch, cache_s.device)
-    rc = _library(spec).pde_screen_structured(
-        cache_s.data_ptr(), cache_f.data_ptr(), cap, int(const_uid),
-        int(big0), int(op_id), int(big == "b"), spoints.data_ptr(),
-        spec.screen_rtol, n_batch, jets.data_ptr(), fj.data_ptr(),
-        packed.data_ptr(), _stream())
-    _raise_on(rc, "structured")
-    LAUNCHES["structured"] += 1
+    if n_batch:
+        rc = _library(spec).pde_screen_structured(
+            cache_s.data_ptr(), cache_f.data_ptr(), cap, int(const_uid),
+            int(big0), int(op_id), int(big == "b"), spoints.data_ptr(),
+            spec.screen_rtol, n_batch,
+            block_cands(spec, "structured", n_batch), jets.data_ptr(),
+            fj.data_ptr(), packed.data_ptr(), _stream())
+        _raise_on(rc, "structured")
+        LAUNCHES["structured"] += 1
     return packed, jets, fj
 
 
@@ -296,7 +347,7 @@ def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
 def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
               spoints, fpoints):
     """One op over per-row operands (make_pallas_universal_kernel /
-    make_pallas_op_kernel).  ``n`` need not be a multiple of the tile;
+    make_pallas_op_kernel).  Any ``n``, in blocks sized to the launch;
     out-of-range rows clamp, as the JAX gather does."""
     if cache_s.device.type == "cpu":
         return universal_ref(spec, cache_s, cache_f, ab_idx, op_id, spoints,
@@ -311,7 +362,8 @@ def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
         rc = _library(spec).pde_screen_universal(
             cache_s.data_ptr(), cache_f.data_ptr(), cap, ab_idx.data_ptr(),
             int(op_id), spoints.data_ptr(), spec.screen_rtol, n,
-            jets.data_ptr(), fj.data_ptr(), packed.data_ptr(), _stream())
+            block_cands(spec, "universal", n), jets.data_ptr(), fj.data_ptr(),
+            packed.data_ptr(), _stream())
         _raise_on(rc, "universal")
         LAUNCHES["universal"] += 1
     return packed, jets, fj

@@ -125,13 +125,14 @@ def load_screen_library(header_text: str) -> ct.CDLL:
         lib = _load(so)
     P, I, F, LL = ct.c_void_p, ct.c_int, ct.c_float, ct.c_longlong
     lib.pde_screen_dims.argtypes = [P]
-    lib.pde_screen_group_smem.argtypes = [P]
+    lib.pde_screen_geometry.argtypes = [P]
     lib.pde_screen_segmented.argtypes = [P, P, LL, P, P, P, F, I, P, P, P, P]
-    lib.pde_screen_structured.argtypes = [P, P, LL, I, I, I, I, P, F, I,
+    lib.pde_screen_structured.argtypes = [P, P, LL, I, I, I, I, P, F, I, I,
                                           P, P, P, P]
     lib.pde_screen_tiled.argtypes = [P, P, LL, P, P, P, P, F, I, P, P, P, P]
-    lib.pde_screen_universal.argtypes = [P, P, LL, P, I, P, F, I, P, P, P, P]
-    for fn in (lib.pde_screen_dims, lib.pde_screen_group_smem,
+    lib.pde_screen_universal.argtypes = [P, P, LL, P, I, P, F, I, I, P, P, P,
+                                         P]
+    for fn in (lib.pde_screen_dims, lib.pde_screen_geometry,
                lib.pde_screen_segmented,
                lib.pde_screen_structured, lib.pde_screen_tiled,
                lib.pde_screen_universal):

@@ -48,8 +48,8 @@ on full launches and on partial ones (segmented on a ragged row count
 whose op runs end inside warps, tiled on fewer tiles).
 
 On the CPU, the host build of the kernels' body (``csrc/host_harness.cpp``,
-g++) runs the segmented and tiled kernels' candidate group with its warp
-shuffles emulated in lane order (``host_screen_rows_grouped``); it is
+g++) runs the four kernels' candidate group with its warp shuffles
+emulated in lane order (``host_screen_rows_grouped``); it is
 held bit for bit equal to the one-thread-per-candidate body
 (``host_screen_rows``) and, like that body, to the plain torch twin, for
 all 18 ops on force_free (order 4) and laplace (order 2), on rows whose
@@ -348,7 +348,8 @@ def test_cuda_kernels_match_ref():
     torch versions (NaN equal to NaN) for every op and addressing mode,
     segmented and tiled also on partial launches (segmented on a ragged
     row count whose op runs end inside warps), the per-op kernel on a
-    batch that is not a tile multiple."""
+    batch that is not a tile multiple and on 1, 17 and 502 rows,
+    structured also at 4,096 rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (hand-written kernels have no CPU "
                     "mode)")
@@ -404,11 +405,21 @@ def test_cuda_kernels_match_ref():
     assert all(x.shape[0] == live for x in outs[-2][0])
     assert all(x.shape[0] == nt15 * TILE for x in outs[-1][0])
     # universal: one op per launch over a ragged batch (no tile multiple)
-    ab_u = torch.from_numpy(ab[:N - 100]).to(dev)
+    # and at the per-op path's small launches (1, 17 and 502 rows: one
+    # step per block, the last ending inside a warp)
+    for rows in (N - 100, 1, 17, 502):
+        ab_u = torch.from_numpy(ab[:rows]).to(dev)
+        for op in range(len(OP_ORDER)):
+            a = (ab_u, op, tsp, tfp)
+            outs.append((ce.universal(spec, ts, tf, *a),
+                         ce.universal_ref(spec, ts, tf, *a)))
+    # structured at --batch-size 4096's launch shape, both kinds; the
+    # second run ends at the cache's last row
     for op in range(len(OP_ORDER)):
-        a = (ab_u, op, tsp, tfp)
-        outs.append((ce.universal(spec, ts, tf, *a),
-                     ce.universal_ref(spec, ts, tf, *a)))
+        for big, big0 in (("a", 1000), ("b", C - 4096)):
+            a = (11, big0, op, tsp, tfp, big, 4096)
+            outs.append((ce.structured(spec, ts, tf, *a),
+                         ce.structured_ref(spec, ts, tf, *a)))
     torch.cuda.synchronize()
     for got, want in outs:
         for x, y in zip(got, want):
@@ -419,6 +430,31 @@ def test_cuda_kernels_match_ref():
             else:
                 same = x == y
             assert bool(same.all())
+
+
+@pytest.mark.parametrize("n", [1, 17, 502, 4096, 19021, 262144])
+def test_block_size_rule_covers_the_launch(n):
+    """The candidates per block of a structured or universal launch: one
+    of 16, 32, 64 or 128 (each divides the 512-row tile, so a structured
+    launch, a tile multiple, has no ragged block), the largest whose grid
+    still fills the card's resident slots, else 16; the grid covers
+    ``[0, n)`` exactly once."""
+    for slots in (1, 132, 528, 4096):
+        c = ce.candidates_per_block(n, slots)
+        blocks = -(-n // c)  # the launchers' grid
+        assert c in ce.GROUP_CANDS and TILE % c == 0
+        rows = np.concatenate([np.arange(b * c, min((b + 1) * c, n))
+                               for b in range(blocks)])
+        assert np.array_equal(rows, np.arange(n))
+        if c > min(ce.GROUP_CANDS):
+            assert blocks >= slots
+        if c < max(ce.GROUP_CANDS):
+            assert -(-n // (2 * c)) < slots
+        if n % TILE == 0:
+            assert n % c == 0
+    # the H100 holds 132 SMs x 4 blocks of these kernels
+    assert [ce.candidates_per_block(m, 528) for m in (262144, 502, 4096)] \
+        == [128, 16, 16]
 
 
 @pytest.mark.parametrize("kernel", ["segmented", "tiled"])
@@ -543,7 +579,7 @@ def _hold_to_plain(spec, op_name, got, plain, m):
 
 @pytest.mark.parametrize("op_name", OP_ORDER)
 def test_host_group_body_matches(host_rows, op_name):
-    """The candidate group (the segmented and tiled kernels' body) is bit
+    """The candidate group (the body of all four CUDA kernels) is bit
     for bit the one-thread-per-candidate body, and holds to the plain
     twin as that body does."""
     spec, ops, outs = host_rows
