@@ -80,7 +80,7 @@ a path's launches, and an event window then holds its wake-up as well;
 ``path`` the launches' rows and event-window ms (each launch for
 segmented, tiled and structured; a summary by launch size for
 universal, whose every launch of phases 6 and 8 goes to
-``chiprun_out/chip_smoke_launches.json``).  Phase 4
+``build/chip_smoke_launches.json``).  Phase 4
 takes no structured launch at depth 4 (every contiguous run is shorter
 than a 262,144 superbatch); phase 5 does.  ``bound_ms`` is the larger
 of the bytes the launch must move (each distinct operand row read once,
@@ -1249,9 +1249,8 @@ def main() -> int:
                 timer8.device("universal") or [])))
 
     # every universal launch of phases 6 and 8, too long for the output
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke_launches.json"),
-              "w") as fh:
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "chip_smoke_launches.json"), "w") as fh:
         json.dump({ph: {"events": timers[ph].per_launch("universal"),
                         "device": timers[ph].device("universal")}
                    for ph in ("per_op", "no_snapshot_resume")}, fh)
