@@ -3,14 +3,16 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 3,9     # a subset (no result line)
 
 Phases, one line each (any failure exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi), torch/CUDA;
-2. build    — nvcc-builds the force_free and laplace screen kernels from
-              the checkout's sources into build/torch_ext/ (one nvcc per
-              build, both started together); prints each entry point's
-              registers, shared memory and spills (-Xptxas -v), its
+2. build    — nvcc-builds the screen kernels of force_free, laplace,
+              kerr_magnetosphere and grad_shafranov from the checkout's
+              sources into build/torch_ext/ (one nvcc per build, all
+              started together); prints each entry point's registers,
+              shared memory and spills (-Xptxas -v; a spill fails), its
               dynamic shared memory and resident blocks per SM, and the
               candidates per block that structured and universal take
               at their paths' launch shapes;
@@ -31,8 +33,9 @@ Phases, one line each (any failure exits non-zero):
               point called back to back (host work included), the
               kernel alone (50 launches replayed from a CUDA graph), and
               an isolated launch after the card idled 5 ms, as the paths
-              launch; all four again on the laplace build (order 2),
-              full and small launches;
+              launch; all four again on the laplace, kerr and
+              grad_shafranov builds (order 2), full and small launches,
+              with the same rules;
 4. main     — ``python -m pde_engine_tpu_torch --problem force_free
               --max-depth 4 --device cuda`` through ``cli.main``: 7/7
               known solutions, exact depth-1/2 counts, depth-3/4 counts
@@ -65,10 +68,31 @@ Phases, one line each (any failure exits non-zero):
               ``use_segmented=False, snapshot_jets=False``, resumed to
               depth 4: the cache is rebuilt by replaying composed rows
               through ``universal``, and the rows equal phase 6's row
-              for row (its universal launches timed as in phase 6).
+              for row (its universal launches timed as in phase 6);
+9. families — ``--problem kerr_magnetosphere --max-depth 4``, ``laplace
+              --max-depth 5`` and ``grad_shafranov --max-depth 5``
+              through ``cli.main``: depths 1-2 exact, depths 3 and up
+              within 1% of the TPU artifacts, the knowns the JAX package
+              finds on the CPU at depth 3, kerr's monopole valid at its
+              anchor a -> 0; each stage's split and the kernels' device
+              time from the CUDA activity trace;
+10. post-hoc — ``--print-run-id <phase 4's run> --verify-pde
+              --heavy-validate --certify`` (each on the 200 shortest
+              valid rows) through ``cli.main``: the report's per-depth
+              counts and knowns equal phase 4's, no row refuted, and
+              ``tools/check_certificates.py`` reproduces every
+              certificate; then ``--find-monopole --audit-kerr
+              --verify-scope all`` on a kerr depth-2 run, with the JAX
+              package's results on the same rows;
+11. DB-rebuild resume — phase 7's and phase 8's depth-3 runs, copied
+              before their resumes and their registry sidecars removed,
+              resumed to depth 4 from their DB rows (the structural fast
+              path): the CLI resume with the jet snapshot gives phase
+              4's depth-4 rows, the per-op resume without one phase 6's
+              rows, row for row.
 
-The launch counts are reset just before each run of phases 4-8 and read
-just after it.  In the kernels line, ``launches`` is each kernel's count
+The launch counts are reset just before each run of phases 4-9 and 11
+and read just after it.  In the kernels line, ``launches`` is each kernel's count
 on its own path: phase 4 (the segmented main path, default batch) for
 segmented and tiled, phase 5 (``--batch-size 4096``) for structured,
 phase 6 (the per-op path) for universal; ``launches_by_phase`` has
@@ -84,10 +108,15 @@ universal, whose every launch of phases 6 and 8 goes to
 takes no structured launch at depth 4 (every contiguous run is shorter
 than a 262,144 superbatch); phase 5 does.  ``bound_ms`` is the larger
 of the bytes the launch must move (each distinct operand row read once,
-its index arrays, 564 B written per candidate) over 3.35 TB/s and its
-float operations (the emitted jet algebra and residual, counted per op
+its index arrays, its outputs written: 564 B a force_free candidate)
+over 3.35 TB/s and its float operations (the emitted jet algebra and
+residual, counted per op
 by ``ops/cuda_emit.op_counts``) over 67 TFLOP/s: the H100 SXM data
-sheet.  ``path_shape`` holds structured's and universal's numbers at
+sheet; a cache row and a candidate's outputs count the family's own
+jet widths (``row_bytes``, ``out_bytes``).  ``family_builds`` holds
+each order-2 build's registers, spills, blocks per SM and mismatching
+rows, ``family_launches`` each kernel's launches in phase 9; the line
+before the kernels line holds phase 9's runs (``families``).  ``path_shape`` holds structured's and universal's numbers at
 their paths' launch shapes.  The last lines are one JSON object
 describing the kernels, the card line and the result object.  Imports
 no jax and nothing of the JAX package.
@@ -96,6 +125,7 @@ no jax and nothing of the JAX package.
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -126,13 +156,39 @@ REPLACES = {
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
-ROW_BYTES = 4 * (120 + 18)  # one cache row: screen jets + fingerprint jets
-OUT_BYTES = 4 * (120 + 18 + 3)  # jets, fingerprint jets, packed verdicts
 PARTIAL_TILES = 37  # tiles of the partial tiled launch
 PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
 OWN_PATH = {"segmented": "main", "structured": "batch_4096",
             "tiled": "main", "universal": "per_op"}
+N_PHASES = 11
+# phase 9: family -> (depth, {depth: the TPU artifact's (uniques, valid)},
+# exact counts at depths 1-2, the knowns the JAX package finds on the CPU
+# at depth 3).  Artifacts: problems/kerr_magnetosphere/outputs/
+# report_20260820_181935.txt, problems/laplace/outputs/
+# report_20260820_184232.txt, problems/grad_shafranov/outputs/
+# report_20260820_151035.txt.
+FAMILIES = {
+    "kerr_magnetosphere": (4, {3: (46149, 0), 4: (5889027, 0)},
+                           {1: (9, 0), 2: (439, 0)}, ()),
+    "laplace": (5, {3: (1813, 135), 4: (67110, 1462),
+                    5: (2787664, 20154)},
+                {1: (4, 2), 2: (61, 17)},
+                ("Point charge (2D log potential)", "Saddle (Im z^2)",
+                 "Uniform X")),
+    "grad_shafranov": (5, {3: (2119, 47), 4: (82344, 496),
+                           5: (3572019, 7378)},
+                       {1: (4, 1), 2: (66, 7)},
+                       ("Vertical flux", "X-point flux")),
+}
+BUILD_SEEDS = {"laplace": 1, "kerr_magnetosphere": 2, "grad_shafranov": 3}
+AUDIT_LIMIT = 200   # rows of phase 10's verify, heavy and certify passes
+# phase 10's kerr depth-2 run: its counts, and the JAX package's
+# --find-monopole and --audit-kerr results on the CPU for the same rows
+KERR_D2 = {1: (9, 0), 2: (439, 0)}
+KERR_D2_MONOPOLE = 11
+KERR_D2_TAGS = {"constant": 7, "no_r_dependence": 92, "no_x_dependence": 99,
+                "disguised_monopole": 4, "other": 246}
 
 
 def fail(msg: str):
@@ -306,18 +362,28 @@ def round_trip_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(n: int, rows, binary_rows, index_bytes: int, ops: float):
-    """(bound_ms, bound_by) of one launch: ``n`` candidates reading the
-    distinct cache rows of ``rows`` (every candidate's a row) and
-    ``binary_rows`` (the b rows of binary ops), ``index_bytes`` of index
-    arrays, writing OUT_BYTES per candidate, doing ``ops`` float32
-    operations."""
+def row_bytes(spec) -> int:
+    """One cache row of the family: screen jets and fingerprint jets."""
+    return 4 * (spec.sdim + spec.fdim)
+
+
+def out_bytes(spec) -> int:
+    """One candidate's outputs: jets, fingerprint jets, packed verdicts."""
+    return 4 * (spec.sdim + spec.fdim + 3)
+
+
+def bound(spec, n: int, rows, binary_rows, index_bytes: int, ops: float):
+    """(bound_ms, bound_by) of one launch of the family of ``spec``: ``n``
+    candidates reading the distinct cache rows of ``rows`` (every
+    candidate's a row) and ``binary_rows`` (the b rows of binary ops),
+    ``index_bytes`` of index arrays, writing ``out_bytes(spec)`` per
+    candidate, doing ``ops`` float32 operations."""
     import torch
     distinct = int(torch.unique(torch.cat([rows.reshape(-1).long(),
                                            binary_rows.reshape(-1).long()
                                            ])).numel())
-    t_bytes = (distinct * ROW_BYTES + index_bytes + n * OUT_BYTES) \
-        / HBM_BYTES_PER_S
+    t_bytes = (distinct * row_bytes(spec) + index_bytes
+               + n * out_bytes(spec)) / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -393,7 +459,7 @@ def phase_kernels(spec, dev):
                                       sp, fp), 10)
     plain = time_ms(lambda: ce.segmented_ref(spec, cache_s, cache_f, ab,
                                              row_ops, sp, fp), 2)
-    b_ms, b_by = bound(SUPER, ab[:, 0], binary_b(ab[:, 1], row_ops),
+    b_ms, b_by = bound(spec, SUPER, ab[:, 0], binary_b(ab[:, 1], row_ops),
                        SUPER * 12, float(ops_of[row_ops.long()].sum()))
     results["segmented"] = (err, ulp, ms, plain, SUPER, bad, b_ms, b_by)
 
@@ -426,7 +492,7 @@ def phase_kernels(spec, dev):
                 run = torch.arange(big0, big0 + SUPER, device=dev)
                 cst = torch.tensor([const] if op >= unary else [],
                                    device=dev)
-                bounds_s.append(bound(SUPER, run, cst, 0,
+                bounds_s.append(bound(spec, SUPER, run, cst, 0,
                                       SUPER * float(ops_of[op])))
     # structured at its path's launch shape (--batch-size 4096): every
     # op and kind, timed
@@ -454,7 +520,7 @@ def phase_kernels(spec, dev):
             plain_q.append(time_ms(lambda: ce.structured_ref(
                 spec, cache_s, cache_f, *a), 2))
             bounds_q.append(bound(
-                STRUCT_ROWS, torch.arange(big0, big0 + STRUCT_ROWS,
+                spec, STRUCT_ROWS, torch.arange(big0, big0 + STRUCT_ROWS,
                                           device=dev),
                 torch.tensor([const] if op >= unary else [], device=dev), 0,
                 STRUCT_ROWS * float(ops_of[op]))[0])
@@ -504,7 +570,7 @@ def phase_kernels(spec, dev):
     runs = (args[0].long()[:, None]
             + torch.arange(512, device=dev)[None, :])
     ops_tt = torch.from_numpy(ops_t).to(dev)
-    b_ms, b_by = bound(SUPER, runs, args[1][ops_tt >= unary],
+    b_ms, b_by = bound(spec, SUPER, runs, args[1][ops_tt >= unary],
                        3 * n_tiles * 4,
                        512 * float(ops_of[ops_tt.long()].sum()))
     results["tiled"] = (err, ulp, ms, plain, SUPER, bad, b_ms, b_by)
@@ -523,7 +589,7 @@ def phase_kernels(spec, dev):
             spec, cache_s, cache_f, ab_u, op, sp, fp), 5))
         plain_u.append(time_ms(lambda: ce.universal_ref(
             spec, cache_s, cache_f, ab_u, op, sp, fp), 1))
-        bounds_u.append(bound(SUPER, ab_u[:, 0],
+        bounds_u.append(bound(spec, SUPER, ab_u[:, 0],
                               ab_u[:, 1] if op >= unary else ab_u[:0, 1],
                               SUPER * 8, SUPER * float(ops_of[op])))
         say(f"    universal/{names[op]}: {ms_u[-1]:.3f} ms kernel, "
@@ -554,7 +620,7 @@ def phase_kernels(spec, dev):
         trip_p.append(round_trip_ms(lambda: ce.universal(
             spec, cache_s, cache_f, torch.from_numpy(ab_np).to(dev), op,
             sp, fp)[0].cpu(), 50))
-        bounds_p.append(bound(PER_OP_ROWS, ab_p[:, 0],
+        bounds_p.append(bound(spec, PER_OP_ROWS, ab_p[:, 0],
                               ab_p[:, 1] if op >= unary else ab_p[:0, 1],
                               PER_OP_ROWS * 8,
                               PER_OP_ROWS * float(ops_of[op]))[0])
@@ -610,10 +676,12 @@ def phase_kernels(spec, dev):
     return results, shapes
 
 
-def phase_laplace(spec, dev):
-    """Phase 3 on the laplace build (order 2, T = 6): the four kernels
-    against their plain twins on full launches and on partial or small
-    ones, all 18 ops."""
+def phase_family(tag, spec, dev, seed):
+    """Phase 3 on an order-2 family's build (laplace, kerr,
+    grad_shafranov: T = 6): the four kernels against their plain twins on
+    full launches and on partial or small ones, all 18 ops, at the
+    family's own points.  Returns the screen-jet rows that differ (exp
+    and log ops only, within ULP_BOUND)."""
     import numpy as np
     import torch
 
@@ -622,8 +690,8 @@ def phase_laplace(spec, dev):
     from pde_engine_tpu_torch.parallel.incremental import OP_ORDER
     from pde_engine_tpu_torch.parallel.search import snap_fp_jets_np
 
-    problem = load_problem("laplace")
-    rng = np.random.default_rng(1)
+    problem = load_problem(tag)
+    rng = np.random.default_rng(seed)
     C, T = SUPER, spec.sdim // spec.n_screen
     s = rng.normal(0.0, 0.5, size=(C, spec.n_screen, T)).astype(np.float32)
     s[..., 0] = rng.uniform(0.3, 1.5, size=(C, spec.n_screen))
@@ -651,18 +719,18 @@ def phase_laplace(spec, dev):
     for seg_ops, nt in ((rows_op, n_tiles), (rag, PARTIAL_TILES)):
         n = len(seg_ops)
         seg = (ab[:n], torch.from_numpy(seg_ops).to(dev), sp, fp)
-        bad += check(f"laplace segmented[{n} rows]", names, seg_ops,
+        bad += check(f"{tag} segmented[{n} rows]", names, seg_ops,
                      ce.segmented(spec, cache_s, cache_f, *seg),
                      ce.segmented_ref(spec, cache_s, cache_f, *seg), T)[2]
         tl = (*(a[:nt] for a in til), sp, fp, nt * 512)
-        bad += check(f"laplace tiled[{nt} tiles]", names,
+        bad += check(f"{tag} tiled[{nt} tiles]", names,
                      rows_op[:nt * 512],
                      ce.tiled(spec, cache_s, cache_f, *tl),
                      ce.tiled_ref(spec, cache_s, cache_f, *tl), T)[2]
     for op in range(n_ops):
         for rows in (SUPER, PER_OP_ROWS) + RAGGED_ROWS:
             u = (ab[:rows], op, sp, fp)
-            bad += check(f"laplace universal[{rows} rows]", names,
+            bad += check(f"{tag} universal[{rows} rows]", names,
                          np.full(rows, op),
                          ce.universal(spec, cache_s, cache_f, *u),
                          ce.universal_ref(spec, cache_s, cache_f, *u), T)[2]
@@ -671,11 +739,11 @@ def phase_laplace(spec, dev):
                 s_args = (int(rng.integers(0, C)), C - rows, op, sp, fp, big,
                           rows)
                 bad += check(
-                    f"laplace structured[{big}, {rows} rows]", names,
+                    f"{tag} structured[{big}, {rows} rows]", names,
                     np.full(rows, op),
                     ce.structured(spec, cache_s, cache_f, *s_args),
                     ce.structured_ref(spec, cache_s, cache_f, *s_args), T)[2]
-    say(f"  laplace build (order 2): segmented ({SUPER:,} rows; "
+    say(f"  {tag} build (order 2): segmented ({SUPER:,} rows; "
         f"{PARTIAL_ROWS:,} in ragged op runs), tiled ({n_tiles} and "
         f"{PARTIAL_TILES} tiles), universal ({SUPER:,}, {PER_OP_ROWS} and "
         f"{', '.join(map(str, RAGGED_ROWS))} rows) and structured "
@@ -683,6 +751,7 @@ def phase_laplace(spec, dev):
         "the cache's last row), all 18 ops: 0 packed and 0 "
         f"fingerprint-jet rows differ, {bad} screen-jet rows differ "
         "(exp/log ops only)")
+    return bad
 
 
 class LaunchTimer:
@@ -837,12 +906,18 @@ def ptxas_report(log: str):
     return out, spills
 
 
-def run_cli(extra, db_dir):
-    """One CLI run; returns the report JSON it wrote."""
+def run_cli(extra, db_dir, problem="force_free", depth=4, log=None):
+    """One CLI run; returns the report JSON it wrote.  The run's own
+    output (its log and report text) is kept off the console, which
+    shows what this script prints of it; with ``log`` a list, it goes
+    into the list."""
     from pde_engine_tpu_torch.cli import main
     db = os.path.join(db_dir, "run.db")
-    rc = main(["--problem", "force_free", "--max-depth", "4", "--device",
-               "cuda", "--db-path", db] + extra)
+    argv = ["--problem", problem, "--max-depth", str(depth), "--device",
+            "cuda", "--db-path", db] + extra
+    rc, out = captured(lambda: main(argv))
+    if log is not None:
+        log.append(out)
     if rc != 0:
         fail(f"cli.main returned {rc}")
     reports = sorted(f for f in os.listdir(db_dir)
@@ -851,6 +926,16 @@ def run_cli(extra, db_dir):
         fail("the run wrote no report")
     with open(os.path.join(db_dir, reports[-1])) as fh:
         return json.load(fh)
+
+
+def captured(fn):
+    """(fn(), what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
 
 
 def db_rows(db, rep, cols, where=""):
@@ -967,11 +1052,12 @@ def check_main(report, card):
     return counts
 
 
-def api_run(db_dir, depth, resume_of=None, **cfg):
+def api_run(db_dir, depth, resume_of=None, log=None, **cfg):
     """A DiscoveryRun through the library entry points (the per-op path
     has no CLI flag, as in the JAX package); with ``resume_of`` a run id,
-    the run is resumed and extended to ``depth``.  Returns (report,
-    launches of the resume's cache rebuild or None)."""
+    the run is resumed and extended to ``depth`` (with ``log`` a list,
+    the resume's rebuild log goes into it).  Returns (report, launches of
+    the resume's cache rebuild or None)."""
     from pde_engine_tpu_torch.parallel import cuda_engine as ce
     from pde_engine_tpu_torch.runtime import DiscoveryRun
     from pde_engine_tpu_torch.utils.config import SearchConfig
@@ -984,7 +1070,12 @@ def api_run(db_dir, depth, resume_of=None, **cfg):
         rep = run.run(depth)
     else:
         ce.reset_launch_counts()
-        run = DiscoveryRun.resume("force_free", resume_of, **kw)
+        kw["verbose"] = log is not None
+        run, out = captured(lambda: DiscoveryRun.resume(
+            "force_free", resume_of, **kw))
+        run.verbose = False
+        if log is not None:
+            log.append(out)
         seeded = dict(ce.LAUNCHES)
         ce.reset_launch_counts()
         rep = run.continue_run(depth)
@@ -992,7 +1083,213 @@ def api_run(db_dir, depth, resume_of=None, **cfg):
     return rep, seeded
 
 
-def main() -> int:
+def phase_families(tmp, card):
+    """Phase 9: kerr to depth 4, laplace and grad_shafranov to depth 5
+    through ``cli.main`` on the card, every launch traced; returns each
+    run's summary."""
+    from pde_engine_tpu_torch.models import load_problem
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    out = {}
+    for tag, (depth, tpu, exact, knowns) in FAMILIES.items():
+        d = os.path.join(tmp, f"p9_{tag}")
+        os.makedirs(d)
+        say(f"  {tag} --max-depth {depth}:")
+        log = []
+        with LaunchTimer(trace=True) as timer:
+            ce.reset_launch_counts()
+            rep = run_cli([], d, problem=tag, depth=depth, log=log)
+            launches = dict(ce.LAUNCHES)
+        counts = counts_of(rep)
+        for dd, want in exact.items():
+            if counts.get(dd) != want:
+                fail(f"{tag} depth {dd} counts {counts.get(dd)} != {want}")
+        for dd, (u_ref, v_ref) in tpu.items():
+            u, v = counts[dd]
+            if abs(u - u_ref) > 0.01 * u_ref or abs(v - v_ref) > 0.01 * v_ref:
+                fail(f"{tag} depth {dd} counts {(u, v)} not within 1% of "
+                     f"the TPU run's {(u_ref, v_ref)}")
+        found = set(rep["paper_solutions_found"])
+        if not set(knowns) <= found:
+            fail(f"{tag}: knowns {sorted(set(knowns) - found)} not found")
+        if tag == "kerr_magnetosphere":
+            ok, rel, note = load_problem(tag).validate_known("1 - x")
+            anchored = "Monopole" in log[0] and "[at anchor a→0]" in log[0]
+            if not (ok and anchored):
+                fail(f"kerr monopole not validated at its anchor: {ok} "
+                     f"{rel} {note}")
+            say(f"    monopole 1 - x valid at its anchor a→0 (max relres "
+                f"{rel:.2e}); run log: " + next(
+                    ln.strip() for ln in log[0].splitlines()
+                    if "Monopole" in ln))
+        stage_lines(rep, card)
+        dev_ms = {k: timer.device_ms(k) for k in ce.KERNELS
+                  if timer.events[k]}
+        if not dev_ms or any(launches[k] <= 0 for k in dev_ms):
+            fail(f"{tag}: no kernel launch on the card: {launches}")
+        out[tag] = {
+            "depth": depth, "counts": counts, "knowns": sorted(found),
+            "launches": launches, "rows": dict(timer.rows),
+            "event_ms": {k: v for k, v in timer.ms().items() if v},
+            "device_ms": dev_ms, "wall_s": rep["wall_seconds"],
+            "stages": [{k: st[k] for k in ("depth", "candidates", "unique",
+                                             "valid", "seconds", "t_enum",
+                                             "t_device", "t_ingest",
+                                             "t_gray")}
+                       for st in rep["stats"]]}
+        say(f"    counts {counts}; knowns {sorted(found)}; launches "
+            f"{launches}; kernel device ms (activity trace) "
+            + ", ".join(f"{k} {fmt_ms(v)}" for k, v in dev_ms.items())
+            + f"; wall {rep['wall_seconds']:.1f} s")
+    return out
+
+
+def report_of(text: str):
+    """(per-depth (generated, valid), known names found) of a report
+    printed by format_report_text."""
+    import re
+    counts = {int(d): (int(g), int(v)) for d, g, v in re.findall(
+        r"depth (\d+):\s+(\d+) generated,\s+(\d+) valid", text)}
+    return counts, set(re.findall(r"\[FOUND\] (.+?)  via ", text))
+
+
+def phase_posthoc(rep4, d4, d10):
+    """Phase 10: the audits of the port's CLI on phase 4's run DB, and on
+    a kerr depth-2 run."""
+    import re
+
+    from pde_engine_tpu_torch.cli import main as cli
+    db4 = os.path.join(d4, "run.db")
+    t0 = time.time()
+    rc, text = captured(lambda: cli([
+        "--problem", "force_free", "--device", "cuda", "--db-path", db4,
+        "--print-run-id", rep4["run_id"], "--verify-pde", "--verify-scope",
+        "valid", "--verify-limit", str(AUDIT_LIMIT), "--heavy-validate",
+        "--heavy-limit", str(AUDIT_LIMIT), "--certify", "--certify-limit",
+        str(AUDIT_LIMIT), "--no-report-families"]))
+    if rc != 0:
+        fail(f"--print-run-id returned {rc}")
+    counts, found = report_of(text)
+    if counts != counts_of(rep4) or found != set(
+            rep4["paper_solutions_found"]):
+        fail(f"--print-run-id report {counts} {sorted(found)} != phase 4's "
+             f"{counts_of(rep4)} {sorted(rep4['paper_solutions_found'])}")
+    m = re.search(r"verify-pde \[valid\]: (\d+) confirmed, (\d+) refuted, "
+                  r"(\d+) skipped", text)
+    if not m or int(m.group(2)) or int(m.group(1)) + int(m.group(3)) != \
+            AUDIT_LIMIT:
+        fail(f"verify-pde: {m and m.group(0)}")
+    h = re.search(r"heavy-validate \[valid\]: (\d+) passed, (\d+) failed",
+                  text)
+    c = re.search(r"certify \[valid\]: (\d+) certificates (\{.*?\}) -> "
+                  r"(\S+)", text)
+    if not h or not c or int(c.group(1)) != AUDIT_LIMIT:
+        fail(f"heavy-validate / certify: {h and h.group(0)}, "
+             f"{c and c.group(0)}")
+    cert_counts = json.loads(c.group(2).replace("'", '"'))
+    if cert_counts.get("refuted"):
+        fail(f"certify refuted rows: {cert_counts}")
+    t_audit = time.time() - t0
+    t0 = time.time()
+    r = subprocess.run([sys.executable,
+                        os.path.join("tools", "check_certificates.py"),
+                        c.group(3)], capture_output=True, text=True,
+                       timeout=900)
+    if r.returncode != 0:
+        fail(f"tools/check_certificates.py: {r.stdout[-2000:]}"
+             f"{r.stderr[-2000:]}")
+    say(f"  --print-run-id {rep4['run_id']}: report equals phase 4's "
+        f"({counts}, {len(found)} knowns); {m.group(0)}; {h.group(0)}; "
+        f"{c.group(0).split(' -> ')[0]}; {t_audit:.1f} s; "
+        f"tools/check_certificates.py: {r.stdout.strip().splitlines()[0]} "
+        f"({time.time() - t0:.1f} s)")
+    rep = run_cli(["--no-report-families"], d10,
+                  problem="kerr_magnetosphere", depth=2)
+    t0 = time.time()
+    rc, text = captured(lambda: cli([
+        "--problem", "kerr_magnetosphere", "--device", "cuda", "--db-path",
+        os.path.join(d10, "run.db"), "--print-run-id", rep["run_id"],
+        "--find-monopole", "--audit-kerr", "--verify-scope", "all",
+        "--no-report-families"]))
+    if rc != 0:
+        fail(f"kerr --print-run-id returned {rc}")
+    counts, _ = report_of(text)
+    mono = re.search(r"find-monopole \[all, target=either\]: (\d+) "
+                     r"candidates", text)
+    tags = dict((k, int(v)) for k, v in re.findall(
+        r"audit-kerr \[all\] (\w+): (\d+)", text))
+    if (counts != KERR_D2 or not mono or tags != KERR_D2_TAGS
+            or int(mono.group(1)) != KERR_D2_MONOPOLE):
+        fail(f"kerr audits: counts {counts}, {mono and mono.group(0)}, "
+             f"tags {tags}; want {KERR_D2}, {KERR_D2_MONOPOLE} monopole "
+             f"candidates, {KERR_D2_TAGS}")
+    say(f"  kerr depth 2 ({sum(u for u, _ in counts.values())} rows): "
+        f"{mono.group(0)}; audit-kerr {tags} (the JAX package's on the "
+        f"CPU); {time.time() - t0:.1f} s")
+
+
+def drop_sidecar(d):
+    """Remove a run's registry sidecar (manifest and parts)."""
+    db = os.path.join(d, "run.db")
+    os.remove(db + ".registry.npz")
+    shutil.rmtree(db + ".registry.d")
+
+
+def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
+    """Phase 11: phase 7's and phase 8's depth-3 runs, their registry
+    sidecars removed, resumed to depth 4 from their DB rows."""
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    drop_sidecar(d11a)
+    log = []
+    ce.reset_launch_counts()
+    rep = run_cli(["--resume-run", rep7a["run_id"], "--no-report-families"],
+                  d11a, log=log)
+    launches = dict(ce.LAUNCHES)
+    fast = [ln for ln in log[0].splitlines()
+            if "resume: structural fast path" in ln]
+    if not fast or "from its DB rows" not in log[0]:
+        fail("the DB-rebuild resume did not take the structural fast "
+             "path: " + log[0][:2000])
+    if counts_of(rep) != counts_of(rep4):
+        fail(f"DB-rebuild resume counts {counts_of(rep)} != phase 4's "
+             f"{counts_of(rep4)}")
+    n = same_rows(os.path.join(d4, "run.db"), rep4,
+                  os.path.join(d11a, "run.db"), rep, "WHERE depth = 4")
+    say(f"  CLI, jet snapshot: {fast[0].strip()}; depth-4 rows equal phase "
+        f"4's row for row ({n:,} rows); launches {launches}; wall "
+        f"{rep['wall_seconds']:.1f} s")
+    drop_sidecar(d11b)
+    log = []
+    cfg = dict(use_segmented=False, snapshot_jets=False)
+    rep, seeded = api_run(d11b, 4, resume_of=rep8a["run_id"], log=log,
+                          **cfg)
+    fast = [ln for ln in log[0].splitlines()
+            if "resume: structural fast path" in ln]
+    if not fast or seeded["universal"] <= 0:
+        fail(f"per-op DB-rebuild resume: {log[0][:2000]} {seeded}")
+    n = same_rows(os.path.join(d6, "run.db"), rep6,
+                  os.path.join(d11b, "run.db"), rep)
+    say(f"  per-op, no jet snapshot: {fast[0].strip()}; {seeded['universal']}"
+        f" universal launches replaying the cache; rows equal phase 6's "
+        f"row for row ({n:,} rows); wall {rep['wall_seconds']:.1f} s")
+
+
+NEEDS = {5: {4}, 6: {4}, 7: {4}, 8: {6}, 10: {4}, 11: {4, 6, 7, 8}}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all; "
+                         "1 and 2 always run; a subset prints no result "
+                         "line)")
+    args = ap.parse_args(argv)
+    phases = set(range(1, N_PHASES + 1))
+    if args.phases:
+        phases = {1, 2} | {int(x) for x in args.phases.split(",")}
+        for ph in phases:
+            if not NEEDS.get(ph, set()) <= phases:
+                fail(f"phase {ph} needs phases {sorted(NEEDS[ph])}")
     try:
         import torch
     except ImportError:
@@ -1007,11 +1304,19 @@ def main() -> int:
     sys.path.insert(0, here)
     os.chdir(here)
     t_all = time.time()
+    t_phase = {}
+
+    def begin(k, msg):
+        t_phase[k] = time.time()
+        say(f"[{k}/{N_PHASES}] {msg}")
+
+    def end(k):
+        t_phase[k] = time.time() - t_phase[k]
 
     card = smi_line()
-    say(f"[1/8] device: {card} | torch {torch.__version__} CUDA "
-        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
-        f"{torch.cuda.device_count()}")
+    begin(1, f"device: {card} | torch {torch.__version__} CUDA "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
     dev = torch.device("cuda")
 
     from pde_engine_tpu_torch.models import load_problem
@@ -1019,21 +1324,23 @@ def main() -> int:
     from pde_engine_tpu_torch.pipeline import cuda_emit_spec
     from pde_engine_tpu_torch.utils.cuda_build import build_log
 
-    problem = load_problem("force_free")
-    spec = cuda_emit_spec(problem, problem.screen_rtol)
-    lap = load_problem("laplace")
-    spec_l = cuda_emit_spec(lap, lap.screen_rtol)
-    t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(ce._library, sp) for sp in (spec, spec_l)]:
+    specs = {}
+    for tag in ("force_free",) + tuple(FAMILIES):
+        p = load_problem(tag)
+        specs[tag] = cuda_emit_spec(p, p.screen_rtol)
+    spec = specs["force_free"]
+    end(1)
+    begin(2, "build")
+    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+        for fut in [pool.submit(ce._library, sp) for sp in specs.values()]:
             fut.result()
-    build_s = time.time() - t0
-    say(f"[2/8] build: {build_s:.1f} s for the force_free and laplace "
-        "libraries together (nvcc sm_90a, -fmad=false, one process each)")
-    for tag, sp in (("force_free", spec), ("laplace", spec_l)):
+    say(f"  {time.time() - t_phase[2]:.1f} s for the "
+        f"{', '.join(specs)} libraries together (nvcc sm_90a, -fmad=false, "
+        "one process each)")
+    ptxas, spilled = {}, {}
+    for tag, sp in specs.items():
         table, spills = ptxas_report(build_log(ce.header_text(sp)))
-        if sp is spec:
-            ptxas_ff = table
+        ptxas[tag] = table
         geo = ce.geometry(sp)
         say(f"  {tag}: " + "; ".join(
             f"{k} {r} registers, {sm} B static shared, spills {st}/{ld} B "
@@ -1042,212 +1349,272 @@ def main() -> int:
             for k, (r, sm, st, ld) in table.items())
             + f"; {geo['sms']} SMs; {geo['lanes']} lanes per candidate "
             f"group, {geo['step']} candidates per step")
-        spilled = {f: v for f, v in spills.items() if any(v)}
-        if spilled:
-            say(f"  {tag}: functions that spill: {spilled}")
+        spilled.update({f"{tag} {f}": v for f, v in spills.items()
+                        if any(v)})
+    if spilled:
+        fail(f"functions that spill (stores, loads): {spilled}")
     say("  candidates per block (blocks): " + "; ".join(
         f"{k} at {n:,} rows {ce.block_cands(spec, k, n)} "
         f"({-(-n // ce.block_cands(spec, k, n)):,})"
         for k, n in (("universal", PER_OP_ROWS), ("universal", SUPER),
                      ("structured", STRUCT_ROWS), ("structured", SUPER)))
         + "; segmented and tiled 128")
+    end(2)
 
-    say("[3/8] kernels vs plain torch on the card (262,144-candidate "
-        "superbatches, cache of 1,048,576 seeded rows):")
-    kres, shapes = phase_kernels(spec, dev)
-    phase_laplace(spec_l, dev)
+    family_bad = {}
+    if 3 in phases:
+        begin(3, "kernels vs plain torch on the card (262,144-candidate "
+              "superbatches, cache of 1,048,576 seeded rows; then the "
+              "order-2 builds)")
+        kres, shapes = phase_kernels(spec, dev)
+        for tag in FAMILIES:
+            family_bad[tag] = phase_family(tag, specs[tag], dev,
+                                           BUILD_SEEDS[tag])
+        end(3)
 
     with tempfile.TemporaryDirectory() as tmp:
-        d4, d5, d6, d7, d8 = (os.path.join(tmp, f"p{k}") for k in range(4, 9))
-        for d in (d4, d5, d6, d7, d8):
+        d4, d5, d6, d7, d8, d10, d11a, d11b = (
+            os.path.join(tmp, f"p{k}") for k in (4, 5, 6, 7, 8, 10, "11a",
+                                                 "11b"))
+        for d in (d4, d5, d6, d7, d8, d10):
             os.makedirs(d)
-        phases, timers = {}, {}
-        say("[4/8] main path: force_free --max-depth 4 --device cuda")
-        with LaunchTimer(trace=True) as timer:
-            ce.reset_launch_counts()
-            rep4 = run_cli([], d4)
-            phases["main"] = launches = dict(ce.LAUNCHES)
-        timers["main"] = timer
-        path_ms = timer.ms()
-        c4 = check_main(rep4, card)
-        disp4 = rep4["dispatches"]
-        for k in ("segmented", "tiled"):
-            if launches[k] <= 0 or disp4[k] <= 0:
-                fail(f"kernel {k} was not launched by the main path: "
-                     f"launches {launches}, dispatches {disp4}")
-        say(f"  7/7 knowns; counts {c4}; dispatches {disp4}; wall "
-            f"{rep4['wall_seconds']:.1f} s")
-        say(f"  launches (main path): {launches}")
-        lr = rep4["launched_rows"]
-        for k in GROUP_KERNELS:
-            rows, cands, tile_rows = (lr[k][x] for x in (
-                "rows", "candidates", "tile_rows"))
-            want = cands if k == "segmented" else tile_rows
-            if timer.rows[k] != rows or rows != want:
-                fail(f"{k}: {timer.rows[k]} rows launched, the engine "
-                     f"counts {lr[k]}: want {want:,} rows")
-            say(f"  {k}: {launches[k]} launches, {rows:,} rows launched "
-                f"for {cands:,} candidates ({rows - cands:,} pad rows"
-                + (", each in the last 512-row tile of a run"
-                   if k == "tiled" else "") + "); kernel "
-                f"{path_ms[k]:.4f} ms summed (CUDA events), "
-                f"{fmt_ms(timer.device_ms(k))} ms of device time (activity "
-                "trace); per launch (rows, ms): " + ", ".join(
-                    f"({n:,}, {ms:.4f})" for n, ms in timer.per_launch(k)))
-        if timer.trace_error:
-            say(f"  no activity trace, device times not measured: "
-                f"{timer.trace_error}")
-        say(f"  segmented + tiled on the main path: "
-            f"{sum(path_ms.values()):.4f} ms of kernel time over "
-            f"{sum(timer.rows.values()):,} live rows")
-        say("[5/8] structured coverage: --batch-size 4096")
-        with LaunchTimer(trace=True) as timer5:
-            ce.reset_launch_counts()
-            rep5 = run_cli(["--batch-size", "4096", "--no-report-families"],
-                           d5)
-            phases["batch_4096"] = launches5 = dict(ce.LAUNCHES)
-        timers["batch_4096"] = timer5
-        disp5 = rep5["dispatches"]
-        c5 = counts_of(rep5)
-        for k in ("segmented", "structured", "tiled"):
-            if launches5[k] <= 0:
-                fail(f"kernel {k} was not launched at --batch-size 4096: "
-                     f"{launches5}")
-        if len(rep5["paper_solutions_found"]) != 7:
-            fail("--batch-size 4096 did not find 7/7 known solutions")
-        # the key sets are dispatch-order invariant; which expression a
-        # key keeps is not, and only there may the verdict differ
-        keys, flips = verdict_diff(os.path.join(d4, "run.db"), rep4,
-                                   os.path.join(d5, "run.db"), rep5)
-        say(f"  launches (--batch-size 4096): {launches5}")
-        say("  keys against phase 4, per depth [in both, only in phase 4, "
-            f"only here, kept with another expression]: {keys}; verdict "
-            f"differs for {len(flips)} keys")
-        for i, (d, k, ra, rb) in enumerate(flips):
-            if ra[0] == rb[0]:
-                fail(f"depth {d} key {k}: {ra[0]!r} is valid={ra[1]} in "
-                     f"one run and valid={rb[1]} in the other")
-            if i < 20:
-                for tag, r in (("default batch", ra), ("batch 4096", rb)):
+        phases_n, timers = {}, {}
+        if 4 in phases:
+            begin(4, "main path: force_free --max-depth 4 --device cuda")
+            with LaunchTimer(trace=True) as timer:
+                ce.reset_launch_counts()
+                rep4 = run_cli([], d4)
+                phases_n["main"] = launches = dict(ce.LAUNCHES)
+            timers["main"] = timer
+            path_ms = timer.ms()
+            c4 = check_main(rep4, card)
+            disp4 = rep4["dispatches"]
+            for k in ("segmented", "tiled"):
+                if launches[k] <= 0 or disp4[k] <= 0:
+                    fail(f"kernel {k} was not launched by the main path: "
+                         f"launches {launches}, dispatches {disp4}")
+            say(f"  7/7 knowns; counts {c4}; dispatches {disp4}; wall "
+                f"{rep4['wall_seconds']:.1f} s")
+            say(f"  launches (main path): {launches}")
+            lr = rep4["launched_rows"]
+            for k in GROUP_KERNELS:
+                rows, cands, tile_rows = (lr[k][x] for x in (
+                    "rows", "candidates", "tile_rows"))
+                want = cands if k == "segmented" else tile_rows
+                if timer.rows[k] != rows or rows != want:
+                    fail(f"{k}: {timer.rows[k]} rows launched, the engine "
+                         f"counts {lr[k]}: want {want:,} rows")
+                say(f"  {k}: {launches[k]} launches, {rows:,} rows launched "
+                    f"for {cands:,} candidates ({rows - cands:,} pad rows"
+                    + (", each in the last 512-row tile of a run"
+                       if k == "tiled" else "") + "); kernel "
+                    f"{path_ms[k]:.4f} ms summed (CUDA events), "
+                    f"{fmt_ms(timer.device_ms(k))} ms of device time "
+                    "(activity trace); per launch (rows, ms): " + ", ".join(
+                        f"({n:,}, {ms:.4f})"
+                        for n, ms in timer.per_launch(k)))
+            if timer.trace_error:
+                say(f"  no activity trace, device times not measured: "
+                    f"{timer.trace_error}")
+            say(f"  segmented + tiled on the main path: "
+                f"{sum(path_ms.values()):.4f} ms of kernel time over "
+                f"{sum(timer.rows.values()):,} live rows")
+            end(4)
+        if 5 in phases:
+            begin(5, "structured coverage: --batch-size 4096")
+            with LaunchTimer(trace=True) as timer5:
+                ce.reset_launch_counts()
+                rep5 = run_cli(["--batch-size", "4096",
+                                "--no-report-families"], d5)
+                phases_n["batch_4096"] = launches5 = dict(ce.LAUNCHES)
+            timers["batch_4096"] = timer5
+            disp5 = rep5["dispatches"]
+            c5 = counts_of(rep5)
+            for k in ("segmented", "structured", "tiled"):
+                if launches5[k] <= 0:
+                    fail(f"kernel {k} was not launched at --batch-size "
+                         f"4096: {launches5}")
+            if len(rep5["paper_solutions_found"]) != 7:
+                fail("--batch-size 4096 did not find 7/7 known solutions")
+            # the key sets are dispatch-order invariant; which expression
+            # a key keeps is not, and only there may the verdict differ
+            keys, flips = verdict_diff(os.path.join(d4, "run.db"), rep4,
+                                       os.path.join(d5, "run.db"), rep5)
+            say(f"  launches (--batch-size 4096): {launches5}")
+            say("  keys against phase 4, per depth [in both, only in phase "
+                "4, only here, kept with another expression]: "
+                f"{keys}; verdict differs for {len(flips)} keys")
+            for i, (d, k, ra, rb) in enumerate(flips):
+                if ra[0] == rb[0]:
+                    fail(f"depth {d} key {k}: {ra[0]!r} is valid={ra[1]} in "
+                         f"one run and valid={rb[1]} in the other")
+                if i < 20:
+                    for tag, r in (("default batch", ra),
+                                   ("batch 4096", rb)):
+                        say(f"    depth {d} key {k}, {tag}: {r[0]!r} "
+                            f"valid={r[1]} ({r[2]}; f64 relmax "
+                            f"{f64_relmax(r[0])!r})")
+            if {d: u for d, (u, _) in c5.items()} != \
+                    {d: u for d, (u, _) in c4.items()}:
+                fail(f"--batch-size 4096 uniques {c5} != default batch's "
+                     f"{c4}")
+            for d, (_, v) in c5.items():
+                if abs(v - c4[d][1]) > VALID_SPREAD * c4[d][1]:
+                    fail(f"depth {d}: --batch-size 4096 valid {v} vs "
+                         f"{c4[d][1]}")
+            say(f"  counts {c5}; valid within {VALID_SPREAD:.1%} of phase 4; "
+                f"dispatches {disp5}; wall {rep5['wall_seconds']:.1f} s")
+            st5 = timer5.per_launch("structured")
+            say(f"  structured: {len(st5)} launches, "
+                f"{timer5.rows['structured']:,} rows, kernel "
+                f"{timer5.ms()['structured']:.4f} ms summed (CUDA events), "
+                f"{fmt_ms(timer5.device_ms('structured'))} ms of device "
+                "time (activity trace); per launch (rows, ms): "
+                + ", ".join(f"({n:,}, {ms:.4f})" for n, ms in st5))
+            end(5)
+        if 6 in phases:
+            begin(6, "per-op path: DiscoveryRun(force_free, SearchConfig("
+                  "max_depth=4, use_segmented=False), device='cuda')")
+            with LaunchTimer(trace=True) as timer6:
+                ce.reset_launch_counts()
+                rep6, _ = api_run(d6, 4, use_segmented=False)
+                phases_n["per_op"] = launches6 = dict(ce.LAUNCHES)
+            timers["per_op"] = timer6
+            c6 = counts_of(rep6)
+            stage_lines(rep6, card)
+            if len(rep6["paper_solutions_found"]) != 7:
+                fail(f"per-op path found {rep6['paper_solutions_found']}, "
+                     "not 7/7 known solutions")
+            if launches6["universal"] <= 0 or any(
+                    launches6[k] for k in ("segmented", "structured",
+                                           "tiled")):
+                fail(f"per-op path launches {launches6}: want universal "
+                     "only")
+            keys6, flips6 = verdict_diff(os.path.join(d4, "run.db"), rep4,
+                                         os.path.join(d6, "run.db"), rep6,
+                                         strict=False)
+            say("  keys against phase 4, per depth [in both, only in phase "
+                "4, only in the per-op run, kept with another expression]: "
+                f"{keys6}; verdict differs for {len(flips6)} keys")
+            for d, k, ra, rb in flips6[:10]:
+                for tag, r in (("phase 4", ra), ("per-op", rb)):
                     say(f"    depth {d} key {k}, {tag}: {r[0]!r} "
-                        f"valid={r[1]} ({r[2]}; f64 relmax "
-                        f"{f64_relmax(r[0])!r})")
-        if {d: u for d, (u, _) in c5.items()} != \
-                {d: u for d, (u, _) in c4.items()}:
-            fail(f"--batch-size 4096 uniques {c5} != default batch's {c4}")
-        for d, (_, v) in c5.items():
-            if abs(v - c4[d][1]) > VALID_SPREAD * c4[d][1]:
-                fail(f"depth {d}: --batch-size 4096 valid {v} vs {c4[d][1]}")
-        say(f"  counts {c5}; valid within {VALID_SPREAD:.1%} of phase 4; "
-            f"dispatches {disp5}; wall {rep5['wall_seconds']:.1f} s")
-        st5 = timer5.per_launch("structured")
-        say(f"  structured: {len(st5)} launches, {timer5.rows['structured']:,}"
-            f" rows, kernel {timer5.ms()['structured']:.4f} ms summed (CUDA "
-            f"events), {fmt_ms(timer5.device_ms('structured'))} ms of "
-            "device time (activity trace); per launch (rows, ms): "
-            + ", ".join(
-                f"({n:,}, {ms:.4f})" for n, ms in st5))
-
-        say("[6/8] per-op path: DiscoveryRun(force_free, SearchConfig("
-            "max_depth=4, use_segmented=False), device='cuda')")
-        with LaunchTimer(trace=True) as timer6:
+                        f"valid={r[1]} ({r[2]})")
+            for d in EXACT:
+                if c6[d] != c4[d] or keys6[d][1] or keys6[d][2]:
+                    fail(f"depth {d}: per-op counts {c6[d]} / keys "
+                         f"{keys6[d]} differ from phase 4's {c4[d]}")
+            for d in (3, 4):
+                for i, what in ((0, "uniques"), (1, "valid")):
+                    if abs(c6[d][i] - c4[d][i]) > VALID_SPREAD * c4[d][i]:
+                        fail(f"depth {d}: per-op {what} {c6[d][i]} not "
+                             f"within {VALID_SPREAD:.1%} of phase 4's "
+                             f"{c4[d][i]}")
+            say(f"  7/7 knowns; counts {c6}; within {VALID_SPREAD:.1%} of "
+                f"phase 4; dispatches {rep6['dispatches']}; launches "
+                f"{launches6}; wall {rep6['wall_seconds']:.1f} s")
+            lr6 = rep6["launched_rows"]["universal"]
+            if not (timer6.rows["universal"] == lr6["rows"]
+                    == lr6["candidates"]):
+                fail(f"universal: {timer6.rows['universal']} rows launched, "
+                     f"the engine counts {lr6}: want exactly its "
+                     "candidates")
+            say(f"  universal: {launches6['universal']} launches, "
+                f"{lr6['rows']:,} rows launched for {lr6['candidates']:,} "
+                f"candidates; kernel {timer6.ms()['universal']:.4f} ms "
+                "summed (CUDA events), "
+                f"{fmt_ms(timer6.device_ms('universal'))} ms of device time "
+                "(activity trace); by launch size, events: "
+                + json.dumps(by_size(timer6.per_launch("universal")))
+                + "; device: " + json.dumps(by_size(
+                    timer6.device("universal") or [])))
+            end(6)
+        if 7 in phases:
+            begin(7, "resume: CLI --max-depth 3, then --resume-run <id> "
+                  "--max-depth 4")
             ce.reset_launch_counts()
-            rep6, _ = api_run(d6, 4, use_segmented=False)
-            phases["per_op"] = launches6 = dict(ce.LAUNCHES)
-        timers["per_op"] = timer6
-        c6 = counts_of(rep6)
-        stage_lines(rep6, card)
-        if len(rep6["paper_solutions_found"]) != 7:
-            fail(f"per-op path found {rep6['paper_solutions_found']}, not "
-                 "7/7 known solutions")
-        if launches6["universal"] <= 0 or any(
-                launches6[k] for k in ("segmented", "structured", "tiled")):
-            fail(f"per-op path launches {launches6}: want universal only")
-        keys6, flips6 = verdict_diff(os.path.join(d4, "run.db"), rep4,
-                                     os.path.join(d6, "run.db"), rep6,
-                                     strict=False)
-        say("  keys against phase 4, per depth [in both, only in phase 4, "
-            "only in the per-op run, kept with another expression]: "
-            f"{keys6}; verdict differs for {len(flips6)} keys")
-        for d, k, ra, rb in flips6[:10]:
-            for tag, r in (("phase 4", ra), ("per-op", rb)):
-                say(f"    depth {d} key {k}, {tag}: {r[0]!r} valid={r[1]} "
-                    f"({r[2]})")
-        for d in EXACT:
-            if c6[d] != c4[d] or keys6[d][1] or keys6[d][2]:
-                fail(f"depth {d}: per-op counts {c6[d]} / keys {keys6[d]} "
-                     f"differ from phase 4's {c4[d]}")
-        for d in (3, 4):
-            for i, what in ((0, "uniques"), (1, "valid")):
-                if abs(c6[d][i] - c4[d][i]) > VALID_SPREAD * c4[d][i]:
-                    fail(f"depth {d}: per-op {what} {c6[d][i]} not within "
-                         f"{VALID_SPREAD:.1%} of phase 4's {c4[d][i]}")
-        say(f"  7/7 knowns; counts {c6}; within {VALID_SPREAD:.1%} of "
-            f"phase 4; dispatches {rep6['dispatches']}; launches "
-            f"{launches6}; wall {rep6['wall_seconds']:.1f} s")
-        lr6 = rep6["launched_rows"]["universal"]
-        if not (timer6.rows["universal"] == lr6["rows"] == lr6["candidates"]):
-            fail(f"universal: {timer6.rows['universal']} rows launched, the "
-                 f"engine counts {lr6}: want exactly its candidates")
-        say(f"  universal: {launches6['universal']} launches, "
-            f"{lr6['rows']:,} rows launched for {lr6['candidates']:,} "
-            f"candidates; kernel {timer6.ms()['universal']:.4f} ms summed "
-            f"(CUDA events), {fmt_ms(timer6.device_ms('universal'))} ms of "
-            "device time (activity trace); by launch size, events: "
-            + json.dumps(by_size(timer6.per_launch("universal")))
-            + "; device: " + json.dumps(by_size(
-                timer6.device("universal") or [])))
+            rep7a = run_cli(["--max-depth", "3", "--no-report-families"],
+                            d7)
+            phases_n["resume_part"] = dict(ce.LAUNCHES)
+            shutil.copytree(d7, d11a)   # phase 11's run without a sidecar
+            ce.reset_launch_counts()
+            rep7 = run_cli(["--resume-run", rep7a["run_id"],
+                            "--no-report-families"], d7)
+            phases_n["resume"] = dict(ce.LAUNCHES)
+            if rep7["run_id"] != rep7a["run_id"] or counts_of(rep7) != c4:
+                fail(f"resumed run {rep7['run_id']} counts "
+                     f"{counts_of(rep7)} != phase 4's {c4}")
+            stage_lines(rep7, card)
+            n7 = same_rows(os.path.join(d4, "run.db"), rep4,
+                           os.path.join(d7, "run.db"), rep7,
+                           "WHERE depth = 4")
+            say(f"  depth-4 rows equal phase 4's row for row ({n7:,} rows); "
+                f"launches: depth-3 run {phases_n['resume_part']}, resumed "
+                f"{phases_n['resume']}; wall {rep7['wall_seconds']:.1f} s")
+            end(7)
+        if 8 in phases:
+            begin(8, "per-op resume without a jet snapshot: depth 3, then "
+                  "resumed to depth 4")
+            cfg8 = dict(use_segmented=False, snapshot_jets=False)
+            ce.reset_launch_counts()
+            rep8a, _ = api_run(d8, 3, **cfg8)
+            phases_n["no_snapshot_part"] = dict(ce.LAUNCHES)
+            if os.path.exists(os.path.join(d8, "run.db.jets.d")):
+                fail("snapshot_jets=False wrote a jet snapshot")
+            shutil.copytree(d8, d11b)   # phase 11's run without a sidecar
+            with LaunchTimer(trace=True) as timer8:
+                rep8, seeded = api_run(d8, 4, resume_of=rep8a["run_id"],
+                                       **cfg8)
+            timers["no_snapshot_resume"] = timer8
+            phases_n["no_snapshot_replay"] = seeded
+            phases_n["no_snapshot_resumed"] = dict(ce.LAUNCHES)
+            if seeded["universal"] <= 0:
+                fail(f"the cache rebuild launched {seeded}: no universal "
+                     "replay")
+            n8 = same_rows(os.path.join(d6, "run.db"), rep6,
+                           os.path.join(d8, "run.db"), rep8)
+            say(f"  rows equal phase 6's row for row ({n8:,} rows); "
+                "universal launches: "
+                f"{phases_n['no_snapshot_part']['universal']} in the depth-3 "
+                f"run, {seeded['universal']} replaying the cache, "
+                f"{phases_n['no_snapshot_resumed']['universal']} in depth 4; "
+                f"wall {rep8['wall_seconds']:.1f} s; universal kernel "
+                f"{timer8.ms()['universal']:.4f} ms summed over the replay "
+                "and depth 4 (CUDA events), "
+                f"{fmt_ms(timer8.device_ms('universal'))} ms of device time "
+                f"(activity trace), {timer8.rows['universal']:,} rows; by "
+                "launch size, events: "
+                + json.dumps(by_size(timer8.per_launch("universal")))
+                + "; device: " + json.dumps(by_size(
+                    timer8.device("universal") or [])))
+            end(8)
+        families = None
+        if 9 in phases:
+            begin(9, "families: kerr_magnetosphere --max-depth 4, laplace "
+                  "and grad_shafranov --max-depth 5, through cli.main")
+            families = phase_families(tmp, card)
+            end(9)
+        if 10 in phases:
+            begin(10, f"post-hoc: --print-run-id <phase 4's run> "
+                  f"--verify-pde --heavy-validate --certify (the "
+                  f"{AUDIT_LIMIT} shortest valid rows each); --find-monopole "
+                  "--audit-kerr on a kerr depth-2 run")
+            phase_posthoc(rep4, d4, d10)
+            end(10)
+        if 11 in phases:
+            begin(11, "DB-rebuild resume: phases 7's and 8's depth-3 runs "
+                  "without their registry sidecars, resumed to depth 4")
+            phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a)
+            end(11)
 
-        say("[7/8] resume: CLI --max-depth 3, then --resume-run <id> "
-            "--max-depth 4")
-        ce.reset_launch_counts()
-        rep7a = run_cli(["--max-depth", "3", "--no-report-families"], d7)
-        phases["resume_part"] = dict(ce.LAUNCHES)
-        ce.reset_launch_counts()
-        rep7 = run_cli(["--resume-run", rep7a["run_id"],
-                        "--no-report-families"], d7)
-        phases["resume"] = dict(ce.LAUNCHES)
-        if rep7["run_id"] != rep7a["run_id"] or counts_of(rep7) != c4:
-            fail(f"resumed run {rep7['run_id']} counts {counts_of(rep7)} "
-                 f"!= phase 4's {c4}")
-        stage_lines(rep7, card)
-        n7 = same_rows(os.path.join(d4, "run.db"), rep4,
-                       os.path.join(d7, "run.db"), rep7, "WHERE depth = 4")
-        say(f"  depth-4 rows equal phase 4's row for row ({n7:,} rows); "
-            f"launches: depth-3 run {phases['resume_part']}, resumed "
-            f"{phases['resume']}; wall {rep7['wall_seconds']:.1f} s")
-
-        say("[8/8] per-op resume without a jet snapshot: depth 3, then "
-            "resumed to depth 4")
-        cfg8 = dict(use_segmented=False, snapshot_jets=False)
-        ce.reset_launch_counts()
-        rep8a, _ = api_run(d8, 3, **cfg8)
-        phases["no_snapshot_part"] = dict(ce.LAUNCHES)
-        if os.path.exists(os.path.join(d8, "run.db.jets.d")):
-            fail("snapshot_jets=False wrote a jet snapshot")
-        with LaunchTimer(trace=True) as timer8:
-            rep8, seeded = api_run(d8, 4, resume_of=rep8a["run_id"], **cfg8)
-        timers["no_snapshot_resume"] = timer8
-        phases["no_snapshot_replay"] = seeded
-        phases["no_snapshot_resumed"] = dict(ce.LAUNCHES)
-        if seeded["universal"] <= 0:
-            fail(f"the cache rebuild launched {seeded}: no universal replay")
-        n8 = same_rows(os.path.join(d6, "run.db"), rep6,
-                       os.path.join(d8, "run.db"), rep8)
-        say(f"  rows equal phase 6's row for row ({n8:,} rows); universal "
-            f"launches: {phases['no_snapshot_part']['universal']} in the "
-            f"depth-3 run, {seeded['universal']} replaying the cache, "
-            f"{phases['no_snapshot_resumed']['universal']} in depth 4; "
-            f"wall {rep8['wall_seconds']:.1f} s; universal kernel "
-            f"{timer8.ms()['universal']:.4f} ms summed over the replay and "
-            f"depth 4 (CUDA events), "
-            f"{fmt_ms(timer8.device_ms('universal'))} ms of device time "
-            f"(activity trace), {timer8.rows['universal']:,} rows; by launch "
-            "size, events: "
-            + json.dumps(by_size(timer8.per_launch("universal")))
-            + "; device: " + json.dumps(by_size(
-                timer8.device("universal") or [])))
-
+    say("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in sorted(t_phase.items())}))
+    if families is not None:
+        print(json.dumps({"families": families}), flush=True)
+    if phases != set(range(1, N_PHASES + 1)):
+        say(f"phases {sorted(phases)} passed in {time.time() - t_all:.1f} "
+            "s (a subset: no result line)")
+        return 0
     # every universal launch of phases 6 and 8, too long for the output
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke_launches.json"), "w") as fh:
@@ -1256,7 +1623,7 @@ def main() -> int:
                    for ph in ("per_op", "no_snapshot_resume")}, fh)
     kernels = []
     for k, (err, ulp, ms, plain, _, _, b_ms, b_by) in kres.items():
-        counts = {ph: n[k] for ph, n in phases.items()}
+        counts = {ph: n[k] for ph, n in phases_n.items()}
         own = OWN_PATH[k]
         if not counts[own]:
             fail(f"kernel {k} was not launched on its path ({own}): "
@@ -1285,9 +1652,20 @@ def main() -> int:
             kernels[-1]["path_shape"] = dict(
                 shapes[k], cands_per_block=ce.block_cands(spec, k,
                                                      shapes[k]["rows"]))
-        regs, _, st, ld = ptxas_ff[k]
+        regs, _, st, ld = ptxas["force_free"][k]
         kernels[-1].update(registers=regs, spill_bytes=st + ld,
                            dyn_smem=ce.geometry(spec)["smem"][k])
+        kernels[-1]["family_builds"] = {
+            tag: {"registers": ptxas[tag][k][0],
+                  "spill_bytes": ptxas[tag][k][2] + ptxas[tag][k][3],
+                  "blocks_per_sm": ce.geometry(specs[tag])[
+                      "blocks_per_sm"][k],
+                  "packed_and_fp_rows_differ": 0,
+                  "exp_log_jet_rows_differ": family_bad[tag]}
+            for tag in FAMILIES}
+        if families is not None:
+            kernels[-1]["family_launches"] = {
+                tag: f["launches"][k] for tag, f in families.items()}
     say(f"total {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

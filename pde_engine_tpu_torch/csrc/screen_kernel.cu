@@ -88,6 +88,11 @@ static __device__ __forceinline__ long long clamp_row(long long r,
 }
 
 constexpr int kGroupThreads = 128;            // threads per block
+// universal's blocks per SM (at most 128 registers a thread): left to
+// ptxas's heuristic, grad_shafranov's build took 96 registers and
+// spilled.  The other kernels keep the heuristic's choice (with a
+// minimum of 4, force_free's tiled spills at 128).
+constexpr int kUniversalMinBlocks = 4;
 constexpr int kStep = kGroupThreads / JET_G;  // candidates per step
 constexpr int kBlockCands = 128;              // most candidates per block
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -385,7 +390,7 @@ __global__ void __launch_bounds__(kGroupThreads)
 
 // One op for the whole launch, per-row operands (the per-op engine path
 // and its resume replay), any n, `cands` candidates per block.
-__global__ void __launch_bounds__(kGroupThreads)
+__global__ void __launch_bounds__(kGroupThreads, kUniversalMinBlocks)
     universal_kernel(const float* __restrict__ cache_s,
                      const float* __restrict__ cache_f, long long cap,
                      const int* __restrict__ ab, int op,

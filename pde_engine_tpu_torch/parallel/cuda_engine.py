@@ -18,7 +18,11 @@ On a CUDA tensor each launches its hand-written kernel
 (``csrc/screen_kernel.cu``) or raises; on a CPU tensor it runs its plain
 torch ``*_ref`` twin.  The choice follows the tensors' device only:
 nothing catches a build or launch error and falls back.  ``LAUNCHES``
-counts kernel launches per entry point.
+counts kernel launches per entry point.  Inside :func:`debug_nans` each
+entry point synchronises after its launch and raises
+``FloatingPointError`` on a NaN in its outputs (the counterpart of
+``jax_debug_nans``, for kernel debugging: the screen makes NaNs on
+purpose wherever an op leaves its domain).
 
 ``structured`` and ``universal`` size their blocks to the launch
 (:func:`candidates_per_block`): a block's steps run one after another,
@@ -28,6 +32,7 @@ block.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Dict
@@ -55,6 +60,41 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_DEBUG_NANS = [False]
+
+
+@contextlib.contextmanager
+def debug_nans():
+    """While active, every entry point checks its outputs for NaN."""
+    prev = _DEBUG_NANS[0]
+    _DEBUG_NANS[0] = True
+    try:
+        yield
+    finally:
+        _DEBUG_NANS[0] = prev
+
+
+def _nan_checked(kernel: str, out, op_of_row):
+    """``out`` unchanged; inside :func:`debug_nans`, first synchronise and
+    raise ``FloatingPointError`` naming the kernel, the op and the first
+    row whose screen jets, fingerprint jets or packed relative residual
+    hold a NaN.  ``op_of_row(i)`` is row ``i``'s op id."""
+    if not _DEBUG_NANS[0]:
+        return out
+    packed, jets, fj = out
+    if jets.device.type == "cuda":
+        torch.cuda.synchronize(jets.device)
+    rel = (packed[:, 2] & -65536).view(torch.float32)
+    bad = torch.isnan(jets).any(1) | torch.isnan(fj).any(1) | torch.isnan(rel)
+    if bool(bad.any()):
+        row = int(torch.nonzero(bad)[0, 0])
+        raise FloatingPointError(
+            f"{kernel}: NaN in the outputs of row {row} of "
+            f"{int(bad.shape[0])} (op {OP_ORDER[int(op_of_row(row))]}, "
+            f"{int(bad.sum())} rows hold one)")
+    return out
 
 
 def candidates_per_block(n: int, slots: int, step: int = 16) -> int:
@@ -273,8 +313,9 @@ def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
     Any ``n``: the caller packs each op's candidates back to back and
     passes exactly its candidates."""
     if cache_s.device.type == "cpu":
-        return segmented_ref(spec, cache_s, cache_f, ab_idx, row_ops,
-                             spoints, fpoints)
+        return _nan_checked("segmented", segmented_ref(
+            spec, cache_s, cache_f, ab_idx, row_ops, spoints, fpoints),
+            lambda i: row_ops[i])
     n = int(ab_idx.shape[0])
     cap = _check_cache(spec, cache_s, cache_f, spoints)
     _check(ab_idx, "ab_idx", torch.int32, (n, 2))
@@ -287,7 +328,8 @@ def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
             jets.data_ptr(), fj.data_ptr(), packed.data_ptr(), _stream())
         _raise_on(rc, "segmented")
         LAUNCHES["segmented"] += 1
-    return packed, jets, fj
+    return _nan_checked("segmented", (packed, jets, fj),
+                        lambda i: row_ops[i])
 
 
 def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
@@ -296,8 +338,9 @@ def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
     (make_pallas_structured_kernel); ``n_batch`` a multiple of the
     512-row tile, in blocks sized to the launch."""
     if cache_s.device.type == "cpu":
-        return structured_ref(spec, cache_s, cache_f, const_uid, big0,
-                              op_id, spoints, fpoints, big, n_batch)
+        return _nan_checked("structured", structured_ref(
+            spec, cache_s, cache_f, const_uid, big0, op_id, spoints,
+            fpoints, big, n_batch), lambda i: op_id)
     if big not in ("a", "b") or n_batch % TILE:
         raise ValueError(f"bad structured batch: big={big!r}, n={n_batch}")
     cap = _check_cache(spec, cache_s, cache_f, spoints)
@@ -314,7 +357,7 @@ def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
             fj.data_ptr(), packed.data_ptr(), _stream())
         _raise_on(rc, "structured")
         LAUNCHES["structured"] += 1
-    return packed, jets, fj
+    return _nan_checked("structured", (packed, jets, fj), lambda i: op_id)
 
 
 def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
@@ -323,8 +366,9 @@ def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
     The caller keeps every ``start + 512`` within the cache allocation;
     the kernel clamps rows as a memory guard."""
     if cache_s.device.type == "cpu":
-        return tiled_ref(spec, cache_s, cache_f, starts, const_uid, opkind,
-                         spoints, fpoints, n_batch)
+        return _nan_checked("tiled", tiled_ref(
+            spec, cache_s, cache_f, starts, const_uid, opkind, spoints,
+            fpoints, n_batch), lambda i: opkind[i // TILE] >> 1)
     if n_batch % TILE:
         raise ValueError(f"batch of {n_batch} rows is not a multiple of "
                          f"{TILE}")
@@ -341,7 +385,8 @@ def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
         packed.data_ptr(), _stream())
     _raise_on(rc, "tiled")
     LAUNCHES["tiled"] += 1
-    return packed, jets, fj
+    return _nan_checked("tiled", (packed, jets, fj),
+                        lambda i: opkind[i // TILE] >> 1)
 
 
 def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
@@ -350,8 +395,9 @@ def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
     make_pallas_op_kernel).  Any ``n``, in blocks sized to the launch;
     out-of-range rows clamp, as the JAX gather does."""
     if cache_s.device.type == "cpu":
-        return universal_ref(spec, cache_s, cache_f, ab_idx, op_id, spoints,
-                             fpoints)
+        return _nan_checked("universal", universal_ref(
+            spec, cache_s, cache_f, ab_idx, op_id, spoints, fpoints),
+            lambda i: op_id)
     if not 0 <= int(op_id) < len(OP_ORDER):
         raise ValueError(f"op id {op_id} outside [0, {len(OP_ORDER)})")
     n = int(ab_idx.shape[0])
@@ -366,4 +412,4 @@ def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
             packed.data_ptr(), _stream())
         _raise_on(rc, "universal")
         LAUNCHES["universal"] += 1
-    return packed, jets, fj
+    return _nan_checked("universal", (packed, jets, fj), lambda i: op_id)

@@ -173,7 +173,17 @@ class DiscoveryEngine:
         self.enumerator = Enumerator(
             problem,
             include_special_ops=self.config.include_special_ops,
-            prune=self.config.prune)
+            prune=self.config.prune,
+            spill_dir=self.config.spill_strings)
+        if self.config.spill_strings is not None:
+            if self.enumerator.arena is None:
+                print("  [mem] --spill-strings ignored: native string "
+                      "arena unavailable (C core not loaded); strings "
+                      "stay on the Python path", flush=True)
+            elif not self.enumerator.arena.spilled:
+                print(f"  [mem] string-arena spill to "
+                      f"{self.config.spill_strings} unavailable; strings "
+                      "stay in RAM", flush=True)
         if self.config.use_native is False:
             self.enumerator.arena = None  # exercise the Python string path
             self.enumerator.allow_native_tapes = False

@@ -1,28 +1,31 @@
-"""A persisted discovery run on one torch device: fresh runs and resume.
+"""A persisted discovery run on one torch device: fresh runs, resume and
+the post-hoc audits.
 
 Counterpart of ``DiscoveryRun`` in ``pde_engine_tpu/runtime.py``.  The run
-DB has the JAX package's schema (``python -m pde_engine_tpu --print-run-id``
-reads a port run), reject rows go through the native sqlite sink when the
-C++ core loads, known solutions are validated first, and each depth
-barrier logs one line and writes the generator state, the jet snapshot
-(``<db>.jets.d/shard_<lo>_<hi>.npz``) and the registry sidecar
+DB has the JAX package's schema, reject rows go through the native sqlite
+sink when the C++ core loads, known solutions are validated first, and
+each depth barrier logs one line and writes the generator state, the jet
+snapshot (``<db>.jets.d/shard_<lo>_<hi>.npz``) and the registry sidecar
 (``<db>.registry.npz`` plus ``<db>.registry.d/part_<lo>_<hi>.npz``), in
 the JAX package's file formats.  :meth:`DiscoveryRun.resume` rebuilds a
-run from its registry sidecar and continues at the next depth.  Not
-ported: the resume that re-parses the run DB (a run without a matching
-sidecar), the multi-host registry key shards and the post-hoc audits.
+run from its registry sidecar, or, without one, from the rows of the run
+DB, and continues at the next depth.  The audits (``--print-run-id`` and
+its verbs) read a run back from its DB alone.  Not ported: the
+multi-host registry key shards.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from .enumerator import Candidate
+from .ops import optable as ot
 from .models.base import Problem, load_problem
 from .pipeline import DepthStats, DiscoveryEngine, Row
 from .utils.config import SearchConfig
@@ -50,6 +53,9 @@ class DiscoveryRun:
             self.db_path = db_path_for(self.out_dir, self.run_id)
         self.verbose = verbose
         self.report_families = report_families
+        if self.config.spill_strings == "auto":
+            # resolved here, where the run DB's directory is known
+            self.config.spill_strings = self.out_dir
         self.engine = DiscoveryEngine(self.problem, self.config,
                                       device=device)
         self.db = RunDB(self.db_path, self.run_id)
@@ -168,7 +174,7 @@ class DiscoveryRun:
                 else {s.depth: {"generated": s.unique, "valid": s.valid}
                       for s in self.engine.stats}),
             valid_rows=valid,
-            **self._report_extras(valid))
+            **self._report_extras(valid, families=self.report_families))
         report["wall_seconds"] = time.time() - t_start
         report["device"] = str(self.engine.device)
         report["device_seconds"] = self.engine.device_seconds
@@ -186,13 +192,15 @@ class DiscoveryRun:
         report["report_paths"] = paths
         return report
 
-    def _report_extras(self, valid_rows) -> Dict:
-        """Family breakdown of the valid set (utils/families) and, when
-        the novel set exceeds the SymPy classing limit, classing limited
-        to the non-degenerate 'general' family."""
-        if not (self.report_families and valid_rows):
-            return {}
+    def _family_pass(self, valid_rows):
+        """Array-level family tagging of the valid rows (utils/families):
+        (breakdown, codes, names, is_novel), all None when there is no
+        row.  Rows whose ids map onto the live registry take its tapes;
+        the others (a report read back from the DB alone) parse their
+        expression strings."""
         from .utils.families import summarize, tag_rows
+        if not valid_rows:
+            return None, None, None, None
         exprs = [r["expression"] for r in valid_rows]
         is_novel = np.array([not r["paper_solution_name"]
                              for r in valid_rows])
@@ -210,6 +218,18 @@ class DiscoveryRun:
                          or {}).items():
             if nm in breakdown:
                 breakdown[nm]["note"] = note
+        return breakdown, codes, names, is_novel
+
+    def _report_extras(self, valid_rows, families: bool = True) -> Dict:
+        """build_report's family breakdown of the valid set and, when the
+        novel set exceeds the SymPy classing limit, classing limited to
+        the non-degenerate 'general' family; nothing with ``families``
+        off."""
+        if not families:
+            return {}
+        breakdown, codes, names, is_novel = self._family_pass(valid_rows)
+        if breakdown is None:
+            return {}
         out: Dict = {"family_breakdown": breakdown}
         n_novel = int(is_novel.sum())
         if n_novel > self.config.novel_class_limit:
@@ -482,30 +502,179 @@ class DiscoveryRun:
                db_path: Optional[str] = None, device="cuda",
                verbose: bool = True,
                report_families: bool = True) -> "DiscoveryRun":
-        """Rebuild a run from its registry sidecar and jet snapshot and
-        continue it at the next depth (:meth:`continue_run`).  A run with
-        no sidecar matching its last completed depth would need the JAX
-        package's resume from the DB rows, which is not ported: it
-        raises."""
+        """Rebuild a run and continue it at the next depth
+        (:meth:`continue_run`): from its registry sidecar when one
+        matches the last completed depth, else from the rows of the run
+        DB (:meth:`_resume_from_db`).  A run recorded without reject rows
+        and without a matching sidecar cannot be rebuilt from its DB and
+        is refused."""
         self = cls(problem_name, config, run_id=run_id, db_path=db_path,
                    device=device, verbose=verbose,
                    report_families=report_families)
-        state = self.db.load_generator_state() or {}
-        completed = int(state.get("completed_depth", 0))
-        self.config.include_special_ops = bool(
-            state.get("include_special_ops",
-                      self.config.include_special_ops))
-        reg = self._load_registry_sidecar()
-        if (reg is not None and completed
-                and int(reg["completed_depth"]) == completed):
-            self._resume_from_registry(reg, state, completed)
-            return self
-        self.close()
-        raise RuntimeError(
-            f"run {run_id} has no registry sidecar for its completed depth "
-            f"{completed} ({self._registry_path}); resuming it would need "
-            "the resume that re-parses the run DB, which the torch port "
-            "does not have yet")
+        try:
+            state = self.db.load_generator_state() or {}
+            completed = int(state.get("completed_depth", 0))
+            self.config.include_special_ops = bool(
+                state.get("include_special_ops",
+                          self.config.include_special_ops))
+            reg = self._load_registry_sidecar()
+            if (reg is not None and completed
+                    and int(reg["completed_depth"]) == completed):
+                self._resume_from_registry(reg, state, completed)
+            elif state.get("audit_rejects") is False:
+                # the DB holds only the valid rows: a rebuild from it would
+                # under-enumerate every deeper depth without a word
+                raise RuntimeError(
+                    f"run {run_id} was recorded with audit_rejects=False "
+                    "and has no registry sidecar for its completed depth "
+                    f"{completed} ({self._registry_path}): its DB holds "
+                    "only the valid rows, so it cannot be resumed")
+            else:
+                self._resume_from_db(state, completed)
+        except BaseException:
+            self.close()
+            raise
+        return self
+
+    def _resume_from_db(self, state, completed: int):
+        """Rebuild the engine from the stored rows of the completed
+        depths.  Rows of a depth that was cut mid-way are not registered:
+        the re-run of that depth makes them again with the same ids, and
+        the DB keeps the stored ones.
+
+        Rows with consecutive ids, the depth-1 rows first and every
+        deeper row carrying its structural triple (``struct_op``, ``a``,
+        ``b``), re-register at array speed (the structural fast path);
+        otherwise every row re-parses with SymPy, as rows of older DBs
+        must.  A re-parsed row is a leaf of the registry (it has no
+        triple), so without a jet snapshot its cache row is rebuilt by
+        the float64 oracle, where the fast path replays composed rows
+        through the kernels.  The dedup map takes each row's key from its
+        ``signature`` column.  A jet snapshot is used only if every
+        stored row re-registered (uid = id - 1)."""
+        rows = (self.db.rows("depth <= ?", (completed,)) if completed
+                else self.db.rows())
+        eng = self.engine
+        enum = eng.enumerator
+        fast_k = self._struct_resume_prefix(rows)
+        spelled = ({}, {})      # spelling, wrapped spelling -> uid
+        self._register_parsed(rows[:fast_k] if fast_k else rows, spelled)
+        if fast_k and enum.count_uniques() != fast_k:
+            # a depth-1 row did not re-parse: uids are no longer id - 1,
+            # so the stored triples do not line up
+            self._log("resume: depth-1 prefix incomplete; parse path for "
+                      "the composed rows")
+            self._register_parsed(rows[fast_k:], spelled)
+            fast_k = 0
+        if fast_k:
+            comp = rows[fast_k:]
+            m = len(comp)
+            self._log(f"resume: structural fast path for {m} composed "
+                      f"rows ({fast_k} depth-1 rows parsed)")
+            op_ids = np.fromiter((r["struct_op"] for r in comp), np.int16, m)
+            a_u = np.fromiter((r["struct_a"] for r in comp), np.int32, m)
+            b_u = np.fromiter((-1 if r["struct_b"] is None
+                               else r["struct_b"] for r in comp), np.int32, m)
+            depths = np.fromiter((r["depth"] for r in comp), np.int16, m)
+            enum.register_from_struct(op_ids, a_u, b_u, depths,
+                                      [r["expression"] for r in comp])
+            keys = np.fromiter((_row_key(r) for r in comp), np.uint64, m)
+            eng.fp_to_uid.set_batch(
+                keys, np.arange(fast_k, fast_k + m, dtype=np.int64))
+            eng.n_rows += m
+        else:
+            self._log(f"resume: parse path for {len(rows)} rows")
+        for r in rows:
+            if r["is_valid"]:
+                eng.valid_rows.append(_valid_row(r))
+        self._restore_stats_stubs(state, completed)
+        snap = self._load_jet_snapshot()
+        if snap is not None and eng.id_offset != 0:
+            # some stored rows did not re-register, so the snapshot's rows
+            # no longer align with the uids
+            snap = None
+        if snap is None:
+            self._invalidate_jet_snapshot()
+        eng.seed_cache_from_uniques(
+            snapshot=snap,
+            limit=self._resume_seed_limit(state, completed,
+                                          state.get("cache_n")))
+        self._resume_start_depth = completed + 1
+        self._log(f"Resumed {self.run_id} from its DB rows: {len(rows)} "
+                  f"rows ({len(eng.valid_rows)} valid), completed depth "
+                  f"{completed}, cache {eng.cache.n} rows"
+                  + (f", jet snapshot x{snap['n']}" if snap else
+                     ", no jet snapshot (rows rebuilt by the float64 "
+                     "oracle and the kernels)"))
+
+    def _register_parsed(self, rows, spelled):
+        """Register stored rows by re-parsing their expressions
+        (``spelled``: the registered spellings and wrapped spellings,
+        each mapped to its uid, extended here).  The
+        flags are the forward path's: ``has_var`` is structural (a
+        variable's name in the string; a re-parsed tape is
+        SymPy-normalised, and ``log_mul(rho, 1)`` parses to a constant)
+        and ``is_one`` marks only the literal depth-1 constant.  A
+        composed row that SymPy cannot parse (``sqrt(neg(X))`` makes
+        ``I``) re-registers from the op and parents its spelling names
+        (:func:`_triple_of_spelling`), so that no row is lost and every
+        later uid stays ``id - 1``."""
+        eng = self.engine
+        enum = eng.enumerator
+        consts = self.problem.consts
+        var_pat = re.compile("|".join(rf"\b{re.escape(v)}\b"
+                                      for v in self.problem.var_names))
+        raw, wrapped = spelled
+        for r in rows:
+            expr = r["expression"]
+            depth = int(r["depth"])
+            try:
+                cand = Candidate(
+                    tape=self.problem.parse(expr), depth=depth,
+                    expr_str=expr, top_op=_top_op_of(expr),
+                    has_var=bool(var_pat.search(expr)), consts=consts)
+                cand.is_one = (depth == 1
+                               and cand.tape.is_const_one(consts))
+            except Exception:   # noqa: BLE001 - any SymPy parse failure
+                t = _triple_of_spelling(expr, raw, wrapped)
+                if t is None or depth == 1:
+                    continue    # the id gap shows in id_offset
+                op, a, b = (t[0], enum.unique_at(t[1]),
+                            None if t[2] is None else enum.unique_at(t[2]))
+                cand = Candidate(
+                    depth=depth, expr_str=expr, top_op=op,
+                    has_var=a.has_var or (b is not None and b.has_var),
+                    op_name=op, a=a, b=b, consts=consts)
+            u = enum.add_unique(cand)
+            raw.setdefault(expr, u.uid)
+            wrapped.setdefault(u.wrapped, u.uid)
+            eng.fp_to_uid[_row_key(r)] = u.uid
+            eng.n_rows += 1
+            eng.id_offset = max(eng.id_offset,
+                                int(r["id"]) - enum.count_uniques())
+
+    @staticmethod
+    def _struct_resume_prefix(rows) -> int:
+        """The number k of depth-1 rows when the rows qualify for the
+        structural fast path, else 0: ids 1..n in order, the depth-1 rows
+        the id prefix, and every deeper row a triple whose parents are
+        earlier rows (older DBs hold NULLs there)."""
+        n = len(rows)
+        k = 0
+        for i, r in enumerate(rows):
+            if int(r["id"]) != i + 1:
+                return 0
+            if int(r["depth"]) == 1:
+                if i != k:          # a depth-1 row after a deeper one
+                    return 0
+                k += 1
+                continue
+            op, a, b = r["struct_op"], r["struct_a"], r["struct_b"]
+            if op is None or a is None or not 0 <= int(a) < i:
+                return 0
+            if b is not None and not 0 <= int(b) < i:
+                return 0
+        return k if 0 < k < n else 0
 
     def _resume_from_registry(self, reg, state, completed: int):
         """Rebuild the engine from the registry sidecar: depth-1 rows
@@ -551,15 +720,7 @@ class DiscoveryRun:
                                 np.arange(n, dtype=np.int64))
         eng.n_rows = int(reg["n_rows"])
         for r in self.db.rows("is_valid=1 AND depth <= ?", (completed,)):
-            eng.valid_rows.append(Row(
-                id=int(r["id"]), expression=r["expression"],
-                normalized=r["normalized"] or r["expression"],
-                signature=r["signature"] or "",
-                depth=int(r["depth"]), is_valid=True,
-                validation_reason=r["validation_reason"] or "",
-                validator_method=r["validator_method"] or "",
-                is_paper_solution=bool(r["is_paper_solution"]),
-                paper_solution_name=r["paper_solution_name"]))
+            eng.valid_rows.append(_valid_row(r))
         self._restore_stats_stubs(state, completed)
         snap = self._load_jet_snapshot()
         if snap is None:
@@ -620,9 +781,253 @@ class DiscoveryRun:
         start = getattr(self, "_resume_start_depth", 1)
         return self.run(max_depth=max_depth, start_depth=start)
 
+    # ------------------------------------------------------------------
+    # Post-hoc audits: read a run back from its DB
+    # ------------------------------------------------------------------
+
+    def print_report_from_db(self, classify_novel: bool = True,
+                             families: bool = True) -> Dict:
+        """The run's report from its DB alone.  A run recorded without
+        reject rows holds only its valid rows: its per-depth totals come
+        from the saved generator state.  ``families=False`` skips the
+        family breakdown, which on a DB alone parses every valid row."""
+        rows = self.db.rows()
+        state = self.db.load_generator_state() or {}
+        counts = None
+        if state.get("audit_rejects") is False:
+            counts = state.get("by_depth_counts") or {}
+        valid = [r for r in rows if r["is_valid"]]
+        meta = self.db.metadata()
+        report = build_report(
+            self.problem, rows if counts is None else None,
+            run_id=self.run_id,
+            max_depth=(meta["max_depth"] if meta is not None else 0) or 0,
+            classify_novel=classify_novel, by_depth_counts=counts,
+            valid_rows=valid if counts is not None else None,
+            **self._report_extras(valid, families=families))
+        if counts is not None:
+            self._log("NOTE: reject rows were not persisted "
+                      "(audit_rejects=0); totals come from the saved "
+                      "generator state")
+        self._log(format_report_text(report))
+        return report
+
+    def _scoped_rows(self, scope: str):
+        """The stored rows of ``scope``: 'novel' (valid, not a known
+        solution), 'valid' or 'all'."""
+        if scope == "novel":
+            return self.db.rows("is_valid=1 AND is_paper_solution=0")
+        if scope == "valid":
+            return self.db.rows("is_valid=1")
+        return self.db.rows()
+
+    def _limited(self, rows, scope: str, limit: Optional[int], verb: str,
+                 flag: str):
+        """The ``limit`` shortest of ``rows`` (all of them without one)."""
+        if limit is None or len(rows) <= limit:
+            return rows
+        self._log(f"{verb}: limited to the {limit} shortest of "
+                  f"{len(rows)} {scope} rows ({flag})")
+        return sorted(rows, key=lambda r: len(r["expression"]))[:limit]
+
+    def _sympy_of(self, expr: str):
+        return self.problem.tape_to_sympy(self.problem.parse(expr))
+
+    def verify_pde_from_db(self, scope: str = "novel",
+                           limit: Optional[int] = None) -> Dict:
+        """Prove residual == 0 symbolically for stored rows, the shortest
+        ``limit`` first (a SymPy proof takes about 0.1-1 s a row)."""
+        rows = self._limited(self._scoped_rows(scope), scope, limit,
+                             "verify-pde", "--verify-limit")
+        confirmed, refuted, skipped = [], [], []
+        t0 = time.time()
+        for i, r in enumerate(rows):
+            expr = r["expression"]
+            try:
+                ok = self.problem.exact_zero_residual(self._sympy_of(expr))
+            except Exception:   # noqa: BLE001 - SymPy fails many ways
+                skipped.append(expr)
+            else:
+                (confirmed if ok else refuted).append(expr)
+            if (i + 1) % 500 == 0:
+                rate = (i + 1) / max(time.time() - t0, 1e-9)
+                self._log(f"  verify-pde: {i + 1}/{len(rows)} "
+                          f"({rate:.1f} rows/s)")
+        self._log(f"verify-pde [{scope}]: {len(confirmed)} confirmed, "
+                  f"{len(refuted)} refuted, {len(skipped)} skipped")
+        for e in refuted[:20]:
+            self._log(f"  REFUTED: {e}")
+        return {"confirmed": confirmed, "refuted": refuted,
+                "skipped": skipped}
+
+    def heavy_validate_from_db(self, scope: str = "valid",
+                               limit: Optional[int] = None) -> Dict:
+        """Run the heavy checks (regularity, finiteness, anchor) over
+        stored rows, the shortest ``limit`` first, and write each verdict
+        into the row's ``heavy_*`` columns."""
+        rows = self._limited(self._scoped_rows(scope), scope, limit,
+                             "heavy-validate", "--heavy-limit")
+        passed = failed = 0
+        for r in rows:
+            try:
+                ok, reason = self.problem.heavy_checks(
+                    self._sympy_of(r["expression"]))
+            except Exception as e:  # noqa: BLE001 - recorded on the row
+                ok, reason = False, f"heavy check error: {e}"
+            self.db.update_heavy(int(r["id"]), ok, reason)
+            passed += int(ok)
+            failed += int(not ok)
+        self._log(f"heavy-validate [{scope}]: {passed} passed, "
+                  f"{failed} failed")
+        return {"passed": passed, "failed": failed}
+
+    def find_monopole_extensions(self, scope: str = "valid",
+                                 target: str = "either") -> List[str]:
+        """Kerr: the stored rows whose a -> 0 limit is the monopole
+        (``target``: '1-x', 'x' or either)."""
+        if not hasattr(self.problem, "is_monopole_extension"):
+            self._log("find-monopole: not a Kerr problem")
+            return []
+        old = self.problem.monopole_target
+        self.problem.monopole_target = target
+        hits = []
+        try:
+            for r in self._scoped_rows(scope):
+                try:
+                    hit = self.problem.is_monopole_extension(
+                        self._sympy_of(r["expression"]))
+                except Exception:   # noqa: BLE001 - not a candidate
+                    continue
+                if hit:
+                    hits.append(r["expression"])
+        finally:
+            self.problem.monopole_target = old
+        self._log(f"find-monopole [{scope}, target={target}]: "
+                  f"{len(hits)} candidates")
+        for e in hits[:20]:
+            self._log(f"  {e}")
+        return hits
+
+    def audit_kerr_candidates(self, scope: str = "valid") -> Dict:
+        """Tag stored rows as constant, without r or x dependence, or a
+        disguised monopole (``1 - x`` or ``x``)."""
+        import sympy as sp
+        r_sym, x_sym = self.problem.sympy_vars()
+        tags: Dict[str, List[str]] = {
+            "constant": [], "no_r_dependence": [], "no_x_dependence": [],
+            "disguised_monopole": [], "other": []}
+        for r in self._scoped_rows(scope):
+            expr = r["expression"]
+            try:
+                u = sp.simplify(self._sympy_of(expr))
+            except Exception:   # noqa: BLE001 - not taggable
+                continue
+            has_r, has_x = u.has(r_sym), u.has(x_sym)
+            if not has_r and not has_x:
+                tag = "constant"
+            elif not has_r:
+                try:
+                    mono = (sp.simplify(u - (1 - x_sym)) == 0
+                            or sp.simplify(u - x_sym) == 0)
+                except Exception:   # noqa: BLE001 - undecided
+                    mono = False
+                tag = "disguised_monopole" if mono else "no_r_dependence"
+            elif not has_x:
+                tag = "no_x_dependence"
+            else:
+                tag = "other"
+            tags[tag].append(expr)
+        for k, v in tags.items():
+            self._log(f"audit-kerr [{scope}] {k}: {len(v)}")
+        return tags
+
+    def certify_from_db(self, scope: str = "valid",
+                        limit: Optional[int] = None) -> Dict:
+        """Write machine-checkable exactness certificates for stored rows,
+        the shortest ``limit`` first, beside the run DB
+        (``tools/check_certificates.py`` re-verifies them)."""
+        from .utils.certify import certify_rows
+        rows = self._limited(self._scoped_rows(scope), scope, limit,
+                             "certify", "--certify-limit")
+        out = certify_rows(self.problem, rows, self.out_dir,
+                           run_id=self.run_id)
+        self._log(f"certify [{scope}]: {out['n']} certificates "
+                  f"{out['counts']} -> {out['path']}")
+        return out
+
     def close(self):
         if self._native_sink is not None:
             self._native_sink.close()
             self._native_sink = None
         self.engine._gray_pool.shutdown(wait=True)
         self.db.close()
+
+
+def _row_key(r) -> int:
+    """A stored row's dedup key: its ``signature`` column in hex (what
+    the engine writes), else the structural key of its expression."""
+    try:
+        return int(r["signature"], 16)
+    except (TypeError, ValueError):
+        from .utils.hashing import struct_key_for_expr
+        return struct_key_for_expr(r["expression"])
+
+
+def _valid_row(r) -> Row:
+    """The engine's Row of a stored valid row."""
+    return Row(id=int(r["id"]), expression=r["expression"],
+               normalized=r["normalized"] or r["expression"],
+               signature=r["signature"] or "", depth=int(r["depth"]),
+               is_valid=True,
+               validation_reason=r["validation_reason"] or "",
+               validator_method=r["validator_method"] or "",
+               is_paper_solution=bool(r["is_paper_solution"]),
+               paper_solution_name=r["paper_solution_name"])
+
+
+def _triple_of_spelling(expr: str, raw: Dict[str, int],
+                        wrapped: Dict[str, int]):
+    """(op, a uid, b uid or None) of a composed expression from its
+    spelling, over the registered spellings (``raw``: expression ->
+    uid; ``wrapped``: its wrapped operand form -> uid), or None.  The
+    forward path spells ``op(a)``, ``op(a, b)`` and the infix formats of
+    ``SURFACE_FORMAT`` over wrapped operands; a split counts only if
+    composing its parts gives ``expr`` back."""
+    def top_level(s: str, sep: str):
+        depth = 0
+        for i, ch in enumerate(s):
+            depth += (ch == "(") - (ch == ")")
+            if depth == 0 and s.startswith(sep, i):
+                yield s[:i], s[i + len(sep):]
+
+    head, _, rest = expr.partition("(")
+    if head in ot.ALL_SURFACE_OPS and rest.endswith(")"):
+        inner = rest[:-1]
+        if head in ot.UNARY_OPS:
+            if inner in raw:
+                return head, raw[inner], None
+        else:
+            for a, b in top_level(inner, ", "):
+                if a in raw and b in raw:
+                    return head, raw[a], raw[b]
+    if expr.startswith("(") and expr.endswith(")"):
+        for op, fmt in ot.SURFACE_FORMAT.items():
+            # "(" {a} infix {b} tail
+            infix = fmt[fmt.index("{a}") + 3:fmt.index("{b}")]
+            tail = fmt[fmt.index("{b}") + 3:]
+            for a, rest in top_level(expr[1:], infix):
+                b = rest[:len(rest) - len(tail)]
+                if (a in wrapped and b in wrapped
+                        and fmt.format(a=a, b=b) == expr):
+                    return op, wrapped[a], wrapped[b]
+    return None
+
+
+def _top_op_of(expr_str: str) -> str:
+    """The surface op that made a stored expression, from its spelling
+    (only 'inv' matters, for the prune rules)."""
+    for name in ("inv", "neg", "sqrt", "square", "pow_3_2", "pow_neg_3_2",
+                 "exp_neg", "exp", "log"):
+        if expr_str.startswith(name + "("):
+            return name
+    return ""

@@ -77,7 +77,9 @@ def build_report(problem, rows: Optional[List] = None,
                 valid_rows.append(r)
         total_generated = len(rows)
     else:
-        by_depth = dict(by_depth_counts or {})
+        # saved generator states hold str keys (JSON): one int key per
+        # depth, so that partial depths below merge and sort with them
+        by_depth = {int(d): v for d, v in (by_depth_counts or {}).items()}
         valid_rows = list(valid_rows or [])
         total_generated = sum(v["generated"] for v in by_depth.values())
         # an aborted-mid-depth run stores valid rows for a depth whose
@@ -86,7 +88,7 @@ def build_report(problem, rows: Optional[List] = None,
         # from the table (no-audit runs take this path; reject rows are
         # not persisted, so 'generated' for the partial depth is
         # genuinely unknown)
-        seen = {int(d) for d in by_depth}
+        seen = set(by_depth)
         partial = defaultdict(int)
         for r in valid_rows:
             d = int(r.depth if hasattr(r, "depth") else r["depth"])

@@ -492,7 +492,9 @@ def test_live_rows_are_a_prefix(setup, kernel):
 HOST_ROWS_PER_OP = 240
 
 
-@pytest.fixture(scope="module", params=["force_free", "laplace"])
+@pytest.fixture(scope="module", params=["force_free", "laplace",
+                                        "kerr_magnetosphere",
+                                        "grad_shafranov"])
 def host_rows(request):
     """Seeded operand rows screened by the host build of the body, one
     thread per candidate and as a candidate group, and by the plain torch
@@ -593,7 +595,8 @@ def test_host_group_body_matches(host_rows, op_name):
 @pytest.mark.parametrize("op_name", OP_ORDER)
 def test_host_candidate_body_matches_plain(host_rows, op_name):
     """``screen_candidate``, now a loop over the per-point pieces, still
-    equals the plain twin on both problems' specs and the special rows."""
+    equals the plain twin on the four problems' specs (order 4 and
+    the three order-2 residuals) and the special rows."""
     spec, ops, outs = host_rows
     _hold_to_plain(spec, op_name, outs["host_screen_rows"], outs["plain"],
                    ops == OP_INDEX[op_name])

@@ -276,10 +276,82 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_cli_rejects_flags_it_cannot_serve():
-    from pde_engine_tpu_torch.cli import main
-    for flag in (["--devices", "2"], ["--print-run-id", "x"]):
+    """The multi-device flags belong to a later slice: argparse refuses
+    them.  The audit verbs parse."""
+    from pde_engine_tpu_torch.cli import build_parser, main
+    for flag in (["--devices", "2"], ["--multihost"], ["--shard-cache"],
+                 ["--shard-registry"]):
         with pytest.raises(SystemExit):
             main(flag)
+    args = build_parser().parse_args(
+        ["--print-run-id", "x", "--verify-pde", "--certify", "--watch-run",
+         "y", "--find-monopole", "--audit-kerr", "--heavy-validate",
+         "--profile", "p", "--debug-nans", "--spill-strings"])
+    assert (args.print_run_id, args.watch_run, args.spill_strings) == \
+        ("x", "y", "auto")
+
+
+def test_cli_run_reads_back_through_port(tmp_path, capsys):
+    """A port CLI run's DB reads back through the port's own
+    ``--print-run-id``, with the run's own report."""
+    from pde_engine_tpu_torch.cli import main
+    db = str(tmp_path / "run.db")
+    assert main(["--problem", "laplace", "--max-depth", "2", "--device",
+                 "cpu", "--db-path", db, "--no-report-families"]) == 0
+    rep = [f for f in os.listdir(tmp_path) if f.startswith("reproduction_")]
+    with open(tmp_path / rep[0]) as f:
+        rep = json.load(f)
+    capsys.readouterr()
+    assert main(["--problem", "laplace", "--device", "cpu", "--db-path", db,
+                 "--print-run-id", rep["run_id"],
+                 "--no-report-families"]) == 0
+    out = capsys.readouterr().out
+    assert "depth 2:       61 generated,     17 valid" in out
+    assert f"run_id: {rep['run_id']}   max_depth: 2" in out
+
+
+def test_cli_debug_nans_names_the_launch(tmp_path):
+    """``--debug-nans`` raises at the first screen launch whose outputs
+    hold a NaN (laplace depth 3 screens ``sqrt(neg(X))``), naming the
+    kernel, the op and the row; without it the same run completes."""
+    from pde_engine_tpu_torch.cli import main
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    args = ["--problem", "laplace", "--max-depth", "3", "--device", "cpu",
+            "--no-report-families"]
+    with pytest.raises(FloatingPointError,
+                       match=r"segmented: NaN in the outputs of row \d+ "
+                             r"of \d+ \(op \w+"):
+        main(args + ["--db-path", str(tmp_path / "a.db"), "--debug-nans"])
+    assert not ce._DEBUG_NANS[0]
+    assert main(args + ["--db-path", str(tmp_path / "b.db")]) == 0
+
+
+def test_cli_profile_and_spill_strings(tmp_path):
+    """``--profile DIR`` writes a torch.profiler trace into DIR;
+    ``--spill-strings`` keeps the display strings in a temp file beside
+    the run DB (when the native core loads), with the same counts."""
+    from pde_engine_tpu_torch.cli import main
+    from pde_engine_tpu_torch.runtime import DiscoveryRun
+    from pde_engine_tpu_torch.utils.native import load_core
+    prof = tmp_path / "prof"
+    assert main(["--problem", "laplace", "--max-depth", "2", "--device",
+                 "cpu", "--db-path", str(tmp_path / "run.db"),
+                 "--no-report-families", "--profile", str(prof)]) == 0
+    traces = os.listdir(prof)
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    with open(prof / traces[0]) as f:
+        assert json.load(f)["traceEvents"]
+    run = DiscoveryRun("laplace", SearchConfig(max_depth=2,
+                                               spill_strings="auto"),
+                       db_path=str(tmp_path / "s.db"), device="cpu",
+                       verbose=False, report_families=False)
+    assert run.config.spill_strings == str(tmp_path)
+    if load_core() is not None:
+        assert run.engine.enumerator.arena.spilled
+    rep = run.run(2)
+    run.close()
+    d2 = rep["by_depth"]["2"]
+    assert (d2["generated"], d2["valid"]) == (61, 17)
 
 
 _NO_JAX = r"""
@@ -354,14 +426,16 @@ def test_no_jax_import_in_port_sources():
 # their originals in docstrings and comments only (the code, imports
 # included, is the same: each resolves relative imports to its own
 # package).  utils/native.py is left out: its copy builds its own C++
-# source into build/torch_ext/.
+# source into build/torch_ext/; utils/report.py too: its copy reads
+# per-depth counts saved under str keys as one int key per depth
+# (tests/test_torch_audits.py).
 COPIED = ["ops/optable.py", "ops/jets.py", "ops/jetops.py", "ops/tape.py",
           "models/__init__.py", "models/base.py", "models/residuals.py",
           "models/force_free.py", "models/kerr.py",
           "models/kerr_small_spin.py", "models/laplace_gs.py",
           "enumerator.py", "validator.py", "utils/config.py",
           "utils/hashing.py", "utils/hostmem.py", "utils/db.py",
-          "utils/report.py"]
+          "utils/certify.py", "utils/monitor.py"]
 
 
 def _code_of(path):

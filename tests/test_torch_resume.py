@@ -1,5 +1,6 @@
-"""Resume of the port's runs on the CPU: registry sidecar, jet snapshot and
-the replay of composed rows through the kernels' plain twins.
+"""Resume of the port's runs on the CPU: registry sidecar, jet snapshot,
+the rebuild from the run DB's rows when the sidecar is gone, and the
+replay of composed rows through the kernels' plain twins.
 
 Port analogs of the JAX package's resume tests (``tests/test_runtime_db.py``)
 on laplace, plus the case the JAX package gets wrong: a resume without a
@@ -245,17 +246,140 @@ def test_resume_with_corrupt_jet_shard_invalidates_snapshot(tmp_path):
 
 
 def test_resume_without_sidecar_raises(tmp_path):
-    """The resume that re-parses the run DB is not ported: a run without
-    a registry sidecar for its completed depth is refused, not resumed
-    wrongly."""
+    """A run recorded without reject rows and without a registry sidecar
+    for its completed depth is refused: its DB holds only the valid
+    rows, so a rebuild from it would under-enumerate every deeper
+    depth."""
     db = str(tmp_path / "plain.db")
-    run = _run(db, 2)
+    run = _run(db, 2, audit_rejects=False)
     run.run(2)
     rid = run.run_id
     run.close()
     os.remove(db + ".registry.npz")
-    with pytest.raises(RuntimeError, match="re-parses the run DB"):
-        _resume(db, rid, 3)
+    with pytest.raises(RuntimeError, match="only the valid rows"):
+        _resume(db, rid, 3, audit_rejects=False)
+
+
+def _drop_sidecar(db):
+    import shutil
+    os.remove(db + ".registry.npz")
+    shutil.rmtree(db + ".registry.d")
+
+
+@pytest.mark.parametrize("snapshot_jets,use_segmented",
+                         [(True, True), (False, False)])
+def test_db_rebuild_resume_matches_fresh(tmp_path, capsys, snapshot_jets,
+                                         use_segmented):
+    """Without its registry sidecar a run is rebuilt from its DB rows: the
+    structural fast path (every composed row carries its triple), then
+    the cache from the jet snapshot, or without one from the float64
+    oracle (leaves) and the kernels (composed rows).  Laplace 3 -> 4
+    equals a fresh depth-4 run row for row, reject rows included."""
+    from pde_engine_tpu_torch.runtime import DiscoveryRun as Run
+    cfg = dict(snapshot_jets=snapshot_jets, use_segmented=use_segmented)
+    fresh = _run(tmp_path / "fresh.db", 4, **cfg)
+    frep = fresh.run(4)
+    db = str(tmp_path / "part.db")
+    part = _run(db, 3, **cfg)
+    part.run(3)
+    rid = part.run_id
+    assert Run._struct_resume_prefix(part.db.rows()) == 4
+    part.close()
+    _drop_sidecar(db)
+    capsys.readouterr()
+    res = DiscoveryRun.resume("laplace", rid,
+                              config=SearchConfig(max_depth=4, **cfg),
+                              db_path=db, device="cpu", verbose=True,
+                              report_families=False)
+    log = capsys.readouterr().out
+    assert "resume: structural fast path for 1874 composed rows" in log
+    assert "from its DB rows" in log
+    assert ("jet snapshot x1878" in log) == snapshot_jets
+    rrep = res.continue_run(4)
+    assert rrep["by_depth"] == frep["by_depth"]
+    assert frep["by_depth"]["4"]["valid"] > 0
+    assert _rows(res) == _rows(fresh)
+    fresh.close()
+    res.close()
+
+
+def _registry(run):
+    eng = run.engine
+    enum = eng.enumerator
+    n = enum.count_uniques()
+    keys, uids = eng.fp_to_uid.items_arrays()
+    order = np.argsort(uids)
+    return dict(
+        n=n, exprs=[enum.expr_str_of(u) for u in range(n)],
+        keys=keys[order].tolist(), uids=uids[order].tolist(),
+        depth=enum.u_depth[:n].tolist(),
+        flags=[f[:n].tolist() for f in (enum.f_has_var, enum.f_is_one,
+                                        enum.f_top_inv, enum.f_is_coord)],
+        valid=[r.id for r in eng.valid_rows], n_rows=eng.n_rows,
+        id_offset=eng.id_offset, cache_n=eng.cache.n)
+
+
+def test_db_rebuild_parse_path_same_registry(tmp_path, capsys):
+    """A DB whose rows carry no structural triple (older DBs: the struct
+    columns NULL) re-parses every row with SymPy and rebuilds the same
+    registry as the structural fast path: uids, expressions, dedup keys,
+    depths, pruning flags and valid rows.  Laplace's depth-3
+    ``sqrt(neg(X))`` makes SymPy's ``I`` and does not re-parse; it
+    re-registers from the op and parents its spelling names, so no uid
+    shifts (``id_offset`` 0)."""
+    import shutil
+    import sqlite3
+    cfg = dict(snapshot_jets=False)
+    db = str(tmp_path / "a.db")
+    part = _run(db, 3, **cfg)
+    part.run(3)
+    rid, table = part.run_id, part.db.table
+    part.close()
+    _drop_sidecar(db)
+    nulls = str(tmp_path / "b.db")
+    shutil.copy(db, nulls)
+    con = sqlite3.connect(nulls)
+    con.execute(f"UPDATE {table} SET struct_op=NULL, struct_a=NULL, "
+                "struct_b=NULL")
+    con.commit()
+    con.close()
+    regs = []
+    for path, what in ((db, "resume: structural fast path for 1874 "),
+                       (nulls, "resume: parse path for 1878 rows")):
+        capsys.readouterr()
+        res = DiscoveryRun.resume("laplace", rid,
+                                  config=SearchConfig(max_depth=4, **cfg),
+                                  db_path=path, device="cpu", verbose=True,
+                                  report_families=False)
+        assert what in capsys.readouterr().out
+        regs.append(_registry(res))
+        res.close()
+    fast, parsed = regs
+    assert parsed == fast
+    assert fast["n"] == 1878 and fast["id_offset"] == 0
+
+
+def test_triple_of_spelling_inverts_the_forward_spelling(tmp_path):
+    """Every composed unique of a laplace depth-3 run: its spelling, over
+    the spellings of the uniques before it, names its op and parents."""
+    from pde_engine_tpu_torch.enumerator import wrap_operand
+    from pde_engine_tpu_torch.runtime import _triple_of_spelling
+    run = _run(tmp_path / "x.db", 3)
+    run.run(3)
+    enum = run.engine.enumerator
+    names = enum._op_names
+    raw, wrapped = {}, {}
+    for u in range(enum.count_uniques()):
+        s = enum.expr_str_of(u)
+        if enum.u_op[u] >= 0:
+            b = int(enum.u_b[u])
+            assert _triple_of_spelling(s, raw, wrapped) == (
+                names[int(enum.u_op[u])], int(enum.u_a[u]),
+                None if b < 0 else b), s
+        raw.setdefault(s, u)
+        wrapped.setdefault(wrap_operand(s), u)
+    assert _triple_of_spelling("nope(X)", raw, wrapped) is None
+    run.close()
 
 
 def test_cli_resume_extends_run(tmp_path, capsys):
