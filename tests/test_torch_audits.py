@@ -9,10 +9,10 @@ skipped sets), ``--heavy-validate`` (the ``heavy_*`` columns it writes),
 paths, and accepted by ``tools/check_certificates.py``),
 ``--find-monopole`` and ``--audit-kerr``.  Every comparison is exact:
 both sides run the same SymPy on the same rows.  Kerr's SymPy checks
-are slow (the residual about 0.7 s a row, the monopole limit and the
-audit's simplify 30-60 ms), so the kerr DB keeps its 9 depth-1 rows and
-every fourth of its 439 depth-2 rows, and its verify, heavy and certify
-passes take the 8 shortest of those (it has no valid row at depth 2).
+are slow (its residual above all), so the kerr DB keeps its 9 depth-1
+rows and every fourth of its 439 depth-2 rows, and its verify, heavy
+and certify passes take the 8 shortest of those (it has no valid row
+at depth 2).
 """
 
 import json
