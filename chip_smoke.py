@@ -2,8 +2,13 @@
 """Smoke test of the PyTorch/CUDA port (``pde_engine_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # phases 1-13
     python3 chip_smoke.py --phases 3,9     # a subset (no result line)
+    python3 chip_smoke.py --phases 14      # force_free depth 5, alone
+
+The whole script runs with ``PDE_INGEST_TIMERS=1``: every depth of every
+run prints its ingest sections below its stage line, and a depth whose
+sections are missing or sum above its ``t_ingest`` fails.
 
 Phases, one line each (any failure exits non-zero):
 
@@ -89,10 +94,39 @@ Phases, one line each (any failure exits non-zero):
               resumed to depth 4 from their DB rows (the structural fast
               path): the CLI resume with the jet snapshot gives phase
               4's depth-4 rows, the per-op resume without one phase 6's
-              rows, row for row.
+              rows, row for row;
+12. bench    — ``python -m pde_engine_tpu_torch.bench 3`` (the depth-4
+              stream at the default batch) in a process of its own: one
+              JSON line with the JAX bench's keys, phase 4's depth-4
+              candidates, the first launch of each kind bit-equal to its
+              plain twin;
+13. canaries — a no-audit force_free depth-4 run through
+              ``DiscoveryEngine``: 7/7 knowns, phase 4's counts, and the
+              three recall canaries of ``pde_engine_tpu_torch/canary.py``
+              recovered as valid rows.
 
-The launch counts are reset just before each run of phases 4-9 and 11
-and read just after it.  In the kernels line, ``launches`` is each kernel's count
+Phases 14-17 run only when ``--phases`` names them (each alone fills
+much of a call):
+
+14. depth 5 — ``--problem force_free --max-depth 5 --no-audit-rejects``
+              through ``cli.main``, a progress line on stderr every
+              minute (the ``--watch-run`` status, the ingest sections so
+              far, peak RSS, device memory): depths 1-2 exact, 3-5 within
+              1% of the TPU run (report_20260820_090829.txt), 7/7 knowns;
+15. depth 5 audited — the same run with its reject rows written;
+16. laplace  — ``--max-depth 5`` at the default batch, at
+              ``--batch-size 4096`` and on the per-op path; each key whose
+              verdict differs from the default run's is classed by
+              whether the kept expression differs;
+17. host     — two more fresh force_free depth-4 runs (the spread of
+              the stage), one with cProfile around its depth stages (the
+              main thread; ``build/chip_smoke_profile.pstats``), and
+              a depth-3 run resumed to depth 4 in turns with its DB's
+              secondary indices kept and dropped.
+
+The launch counts are reset just before each run of phases 4-9, 11
+and 13-15 and read just after it; phase 12's bench process sets its own
+to 0 when it starts and reports them in its line.  In the kernels line, ``launches`` is each kernel's count
 on its own path: phase 4 (the segmented main path, default batch) for
 segmented and tiled, phase 5 (``--batch-size 4096``) for structured,
 phase 6 (the per-op path) for universal; ``launches_by_phase`` has
@@ -115,8 +149,10 @@ by ``ops/cuda_emit.op_counts``) over 67 TFLOP/s: the H100 SXM data
 sheet; a cache row and a candidate's outputs count the family's own
 jet widths (``row_bytes``, ``out_bytes``).  ``family_builds`` holds
 each order-2 build's registers, spills, blocks per SM and mismatching
-rows, ``family_launches`` each kernel's launches in phase 9; the line
-before the kernels line holds phase 9's runs (``families``).  ``path_shape`` holds structured's and universal's numbers at
+rows, ``family_launches`` each kernel's launches in phase 9; the lines
+before the kernels line hold phase 9's runs (``families``), phase 12's
+bench line (``bench``) and phases 14-15's runs (``depth5``), each where
+its phase ran.  ``path_shape`` holds structured's and universal's numbers at
 their paths' launch shapes.  The last lines are one JSON object
 describing the kernels, the card line and the result object.  Imports
 no jax and nothing of the JAX package.
@@ -136,6 +172,8 @@ from concurrent.futures import ThreadPoolExecutor
 # either fail loudly
 sys.modules["jax"] = None
 sys.modules["pde_engine_tpu"] = None
+# the port reads its ingest sub-timers' switch when it is imported
+os.environ["PDE_INGEST_TIMERS"] = "1"
 
 TPU_REF = {3: (8974, 2155), 4: (656856, 59865)}   # uniques, valid (TPU run)
 EXACT = {1: (5, 4), 2: (153, 93)}
@@ -161,7 +199,13 @@ PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
 OWN_PATH = {"segmented": "main", "structured": "batch_4096",
             "tiled": "main", "universal": "per_op"}
-N_PHASES = 11
+N_PHASES = 17
+DEFAULT_PHASES = set(range(1, 14))   # 14-17 run only when asked for
+# phases 14-15: the TPU run of force_free to depth 5,
+# problems/force_free/outputs/report_20260820_090829.txt (59,171,371
+# depth-5 candidates in its reproduction JSON)
+TPU_D5 = {3: (8974, 2155), 4: (656856, 59865), 5: (53940644, 1858749)}
+WATCH_S = 60   # seconds between the progress lines of phases 14-15
 # phase 9: family -> (depth, {depth: the TPU artifact's (uniques, valid)},
 # exact counts at depths 1-2, the knowns the JAX package finds on the CPU
 # at depth 3).  Artifacts: problems/kerr_magnetosphere/outputs/
@@ -999,22 +1043,24 @@ def verdict_diff(db_a, rep_a, db_b, rep_b, strict: bool = True):
     return dict(sorted(table.items())), sorted(flips)
 
 
-def f64_relmax(expr: str) -> float:
-    """The engine's float64 recheck of one expression (relative residual
-    over the informative screen points)."""
+def f64_relmax(expr: str, problem: str = "force_free") -> float:
+    """The engine's float64 recheck of one expression as SymPy parses it
+    (relative residual over the informative screen points).  SymPy
+    normalises the spelling (``log_mul(1, exp(Y))`` becomes ``Y``), so
+    this is the residual of the function, not of the kept tape."""
     from pde_engine_tpu_torch.models import load_problem
     from pde_engine_tpu_torch.pipeline import Candidate, DiscoveryEngine
-    global _CPU_ENGINE
-    if _CPU_ENGINE is None:
-        _CPU_ENGINE = DiscoveryEngine(load_problem("force_free"),
-                                      device="cpu")
-    p = _CPU_ENGINE.problem
+    if problem not in _CPU_ENGINES:
+        _CPU_ENGINES[problem] = DiscoveryEngine(load_problem(problem),
+                                                device="cpu")
+    eng = _CPU_ENGINES[problem]
+    p = eng.problem
     cand = Candidate(depth=0, expr_str=expr, top_op="", has_var=True,
                      tape=p.parse(expr), consts=p.consts)
-    return _CPU_ENGINE._recheck_f64(cand)[1]
+    return eng._recheck_f64(cand)[1]
 
 
-_CPU_ENGINE = None
+_CPU_ENGINES = {}
 
 
 def counts_of(report):
@@ -1023,7 +1069,9 @@ def counts_of(report):
 
 
 def stage_lines(report, card):
-    """One line per depth: counts and the stage split."""
+    """One line per depth: counts and the stage split; below each depth
+    from 2 on, its ingest sections (PDE_INGEST_TIMERS), which must be
+    there and sum to no more than its t_ingest."""
     for st in report["stats"]:
         if not st["seconds"]:
             continue  # a depth restored by a resume
@@ -1033,6 +1081,18 @@ def stage_lines(report, card):
             f"{st['seconds']:.3f} s enum {st['t_enum']:.3f} device "
             f"{st['t_device']:.3f} ingest {st['t_ingest']:.3f} gray "
             f"{st['t_gray']:.3f} | {rate:,.0f} candidates/s on {card}")
+        if st["depth"] < 2:
+            continue  # depth 1 goes through the float64 oracle
+        sec = st.get("ingest_sections") or {}
+        total = sum(sec.values())
+        if not sec or total > st["t_ingest"]:
+            fail(f"depth {st['depth']}: ingest sections {sec} (sum "
+                 f"{total:.3f} s) against t_ingest {st['t_ingest']:.3f} s")
+        say("      ingest breakdown: " + " ".join(
+            f"{k} {v:.3f}" for k, v in sec.items())
+            + f" (sum {total:.3f} of {st['t_ingest']:.3f} s); outside "
+            "the timed sections "
+            f"{st['seconds'] - st['t_enum'] - st['t_device'] - st['t_ingest'] - st['t_gray']:.3f} s")
 
 
 def check_main(report, card):
@@ -1052,7 +1112,8 @@ def check_main(report, card):
     return counts
 
 
-def api_run(db_dir, depth, resume_of=None, log=None, **cfg):
+def api_run(db_dir, depth, resume_of=None, log=None, problem="force_free",
+            **cfg):
     """A DiscoveryRun through the library entry points (the per-op path
     has no CLI flag, as in the JAX package); with ``resume_of`` a run id,
     the run is resumed and extended to ``depth`` (with ``log`` a list,
@@ -1066,13 +1127,13 @@ def api_run(db_dir, depth, resume_of=None, log=None, **cfg):
               verbose=False, report_families=False)
     seeded = None
     if resume_of is None:
-        run = DiscoveryRun("force_free", **kw)
+        run = DiscoveryRun(problem, **kw)
         rep = run.run(depth)
     else:
         ce.reset_launch_counts()
         kw["verbose"] = log is not None
         run, out = captured(lambda: DiscoveryRun.resume(
-            "force_free", resume_of, **kw))
+            problem, resume_of, **kw))
         run.verbose = False
         if log is not None:
             log.append(out)
@@ -1134,7 +1195,7 @@ def phase_families(tmp, card):
             "stages": [{k: st[k] for k in ("depth", "candidates", "unique",
                                              "valid", "seconds", "t_enum",
                                              "t_device", "t_ingest",
-                                             "t_gray")}
+                                             "t_gray", "ingest_sections")}
                        for st in rep["stats"]]}
         say(f"    counts {counts}; knowns {sorted(found)}; launches "
             f"{launches}; kernel device ms (activity trace) "
@@ -1273,18 +1334,394 @@ def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
         f"row for row ({n:,} rows); wall {rep['wall_seconds']:.1f} s")
 
 
-NEEDS = {5: {4}, 6: {4}, 7: {4}, 8: {6}, 10: {4}, 11: {4, 6, 7, 8}}
+def phase_bench(tmp, rep4):
+    """Phase 12: ``python -m pde_engine_tpu_torch.bench 3`` (the depth-4
+    stream at the default batch) in a process of its own, with a HOME of
+    its own so that its seed is made afresh and left in ``tmp``: one JSON
+    line with the JAX bench's keys, phase 4's depth-4 candidates, the
+    first launch of each kind bit-equal to its plain twin, and each
+    routed kernel launched (the bench reports its entry points' launch
+    counts, set to 0 when it starts).  Returns the result and those
+    counts."""
+    env = dict(os.environ, HOME=os.path.join(tmp, "p12_home"))
+    for k in ("PDE_BENCH_BATCH", "PDE_BENCH_MAX_SUPERS"):
+        env.pop(k, None)
+    r = subprocess.run([sys.executable, "-m", "pde_engine_tpu_torch.bench",
+                        "3"], capture_output=True, text=True, env=env,
+                       timeout=900,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    rc, text = r.returncode, r.stdout
+    say("  " + "\n  ".join(r.stderr.strip().splitlines()[-4:]))
+    lines = text.splitlines()
+    if rc != 0 or len(lines) != 1:
+        fail(f"the bench returned {rc} and printed {len(lines)} lines: "
+             f"{text[-2000:]}")
+    res = json.loads(lines[0])
+    if not {"metric", "value", "unit", "vs_baseline"} <= set(res):
+        fail(f"the bench line lacks keys: {sorted(res)}")
+    det = res["detail"]
+    want = next(st["candidates"] for st in rep4["stats"]
+                if st["depth"] == 4)
+    if det["candidates_timed"] != want or det["stream_truncated"]:
+        fail(f"the bench timed {det['candidates_timed']} candidates "
+             f"(truncated: {det['stream_truncated']}), phase 4's depth 4 "
+             f"has {want}")
+    kinds = {k for k, n in det["launches"].items() if n}
+    differ = det["first_launch_rows_differ"] or {}
+    if set(differ) != kinds or any(differ.values()):
+        fail(f"first launch of each kind against its plain twin: rows "
+             f"differing {differ}, kinds launched {sorted(kinds)}")
+    launches = det["kernel_launches"]
+    if any(launches[k] <= 0 for k in kinds):
+        fail(f"bench: kernels {sorted(kinds)} routed, launches {launches}")
+    say(f"  one line; {det['candidates_timed']:,} candidates (phase 4's "
+        f"depth 4), launches {det['launches']}, first launch of each "
+        f"kind bit-equal to its plain twin ({differ}); value "
+        f"{res['value']:,.0f} {res['unit']} (median of {det['reps']}: "
+        f"{det['seconds']}); kernel device ms "
+        f"{fmt_ms(det['kernel_device_ms'])}, verdict copies "
+        f"{fmt_ms(det['copy_device_ms'])} ms ({det['verdict_bytes']:,} B)"
+        f"; seed {det['seed_seconds']:.1f} s (cache hit: "
+        f"{det['seed_cache_hit']}); kernel launches {launches}; "
+        f"{det['card']}")
+    return res, launches
+
+
+def phase_canary(card, c4):
+    """Phase 13: the recall canaries in a no-audit force_free depth-4 run
+    through ``DiscoveryEngine`` (the port of tests/test_recall_canary.py):
+    7/7 knowns, every canary a valid row whose dedup key maps back to its
+    uid, and, with phase 4 run, phase 4's counts.  Returns the launch
+    counts."""
+    from pde_engine_tpu_torch import canary
+    from pde_engine_tpu_torch.models import load_problem
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    from pde_engine_tpu_torch.pipeline import DiscoveryEngine
+    from pde_engine_tpu_torch.utils.config import SearchConfig
+    t0 = time.time()
+    eng = DiscoveryEngine(load_problem("force_free"), SearchConfig(
+        max_depth=4, audit_rejects=False), device="cuda")
+    ce.reset_launch_counts()
+    eng.run(4)
+    launches = dict(ce.LAUNCHES)
+    counts = {s.depth: (s.unique, s.valid) for s in eng.stats}
+    found = {r.paper_solution_name for r in eng.valid_rows
+             if r.paper_solution_name}
+    if len(found) != 7:
+        fail(f"no-audit depth 4: {len(found)}/7 knowns {sorted(found)}")
+    if c4 is not None and counts != c4:
+        fail(f"no-audit depth-4 counts {counts} != phase 4's {c4}")
+    if eng.rows and not all(r.is_valid for r in eng.rows):
+        fail("the no-audit run kept reject rows")
+    stage_lines({"stats": [vars(s) for s in eng.stats]}, card)
+    for expr, depth in canary.CANARIES:
+        row = canary.locate(eng, expr)
+        if row is None or not row.is_valid:
+            fail(f"canary {expr} (depth {depth}) was not recovered as a "
+                 "valid row")
+        say(f"  canary {expr} (depth {depth}): valid row {row.id} "
+            f"{row.expression!r} at depth {row.depth}, key "
+            f"{row.signature} maps to its uid")
+    say(f"  7/7 knowns; counts {counts}"
+        + ("" if c4 is None else " (phase 4's)")
+        + f"; launches {launches}; {time.time() - t0:.1f} s")
+    return launches
+
+
+class Watcher:
+    """While a CLI run goes on, one line on stderr every ``WATCH_S``
+    seconds: the run's ``--watch-run`` status line (generated
+    candidates, rows, valid rows), the ingest sections so far, the
+    process's peak RSS and the device memory allocated."""
+
+    def __init__(self, db: str):
+        import threading
+        self.db = db
+        self.t0 = time.time()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+    def _loop(self):
+        import resource
+        import sqlite3
+
+        import torch
+
+        from pde_engine_tpu_torch import pipeline
+        from pde_engine_tpu_torch.utils.monitor import format_status
+        while not self.stop.wait(WATCH_S):
+            status = None
+            try:
+                con = sqlite3.connect(self.db, timeout=5)
+                row = con.execute("SELECT run_id FROM run_metadata"
+                                  ).fetchone()
+                con.close()
+                if row:
+                    status = format_status(self.db, row[0])
+            except sqlite3.Error as e:
+                status = f"(status unreadable: {e})"
+            try:
+                sec = dict(pipeline._INGEST_TIMERS)
+            except RuntimeError:  # a section added while copying
+                sec = {}
+            print(f"  [watch +{time.time() - self.t0:.0f} s] {status} | "
+                  "ingest sections so far: " + " ".join(
+                      f"{k} {v:.1f}" for k, v in sec.items())
+                  + " | peak RSS "
+                  f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+                  " GiB | device "
+                  f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB",
+                  file=sys.stderr, flush=True)
+
+
+def phase_depth5(tmp, card, audit: bool):
+    """Phases 14 (``--no-audit-rejects``) and 15 (reject rows audited):
+    ``--problem force_free --max-depth 5`` through ``cli.main``, with a
+    progress line every WATCH_S seconds: depths 1-2 exact, depths 3-5
+    within 1% of the TPU run, 7/7 knowns; every depth's stage and ingest
+    sections printed.  Returns the run's summary."""
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    d = os.path.join(tmp, "p15" if audit else "p14")
+    os.makedirs(d)
+    extra = [] if audit else ["--no-audit-rejects"]
+    with Watcher(os.path.join(d, "run.db")):
+        ce.reset_launch_counts()
+        rep = run_cli(extra, d, depth=5)
+        launches = dict(ce.LAUNCHES)
+    counts = counts_of(rep)
+    stage_lines(rep, card)
+    found = sorted(rep["paper_solutions_found"])
+    for dd, want in EXACT.items():
+        if counts.get(dd) != want:
+            fail(f"depth {dd} counts {counts.get(dd)} != {want}")
+    for dd, (u_ref, v_ref) in TPU_D5.items():
+        u, v = counts[dd]
+        if abs(u - u_ref) > 0.01 * u_ref or abs(v - v_ref) > 0.01 * v_ref:
+            fail(f"depth {dd} counts {(u, v)} not within 1% of the TPU "
+                 f"run's {(u_ref, v_ref)}")
+    if len(found) != 7:
+        fail(f"{len(found)}/7 known solutions found: {found}")
+    st5 = next(st for st in rep["stats"] if st["depth"] == 5)
+    say(f"  7/7 knowns; counts {counts}, within 1% of the TPU run's "
+        f"{TPU_D5} at depths 3-5; depth 5: {st5['candidates']:,} "
+        f"candidates (TPU 59,171,371); launches {launches}; wall "
+        f"{rep['wall_seconds']:.1f} s")
+    return {"audit": audit, "counts": counts, "launches": launches,
+            "wall_s": rep["wall_seconds"], "knowns": found,
+            "stats": rep["stats"]}
+
+
+def phase_laplace(tmp, card):
+    """Phase 16: laplace to depth 5 three ways (the default batch,
+    ``--batch-size 4096``, the per-op path); every key whose verdict
+    differs between the default run and another is classed: the kept
+    expression differs (dispatch order), or the same expression got
+    another screen verdict (float32 rounding), with the float64
+    relative residual of each expression's SymPy form."""
+    runs = {}
+    for tag, extra in (("default", []), ("batch_4096",
+                                         ["--batch-size", "4096"]),
+                       ("per_op", None)):
+        d = os.path.join(tmp, f"p16_{tag}")
+        os.makedirs(d)
+        if extra is None:
+            rep, _ = api_run(d, 5, problem="laplace", use_segmented=False)
+        else:
+            rep = run_cli(extra + ["--no-report-families"], d,
+                          problem="laplace", depth=5)
+        runs[tag] = (os.path.join(d, "run.db"), rep)
+        say(f"  {tag}: counts {counts_of(rep)}, TPU "
+            f"{FAMILIES['laplace'][1]}; dispatches {rep['dispatches']}; "
+            f"wall {rep['wall_seconds']:.1f} s")
+        stage_lines(rep, card)
+    for tag in ("batch_4096", "per_op"):
+        keys, flips = verdict_diff(*runs["default"], *runs[tag],
+                                   strict=False)
+        same = [f for f in flips if f[2][0] == f[3][0]]
+        other = [f for f in flips if f[2][0] != f[3][0]]
+        say(f"  default against {tag}, per depth [in both, only in "
+            f"default, only in {tag}, kept with another expression]: "
+            f"{keys}; verdict differs for {len(flips)} keys: "
+            f"{len(other)} keep another expression (dispatch "
+            f"order), {len(same)} the same expression (screen rounding); "
+            f"valid only in default {sum(f[2][1] for f in flips)}, only "
+            f"in {tag} {sum(f[3][1] for f in flips)}")
+        for d, k, ra, rb in same[:30] + other[:10]:
+            for side, r in (("default", ra), (tag, rb)):
+                say(f"    depth {d} key {k}, {side}: {r[0]!r} valid={r[1]}"
+                    f" ({r[2]}; f64 relmax of its SymPy form "
+                    f"{f64_relmax(r[0], 'laplace')!r})")
+
+
+class MainThreadSampler:
+    """Samples the main thread's stack every ``interval`` seconds from a
+    thread of its own while active: per function (file:name), the
+    samples whose stack holds it.  cProfile on Python 3.12 records every
+    thread and attributes callers across them, so it cannot say where
+    the main thread's time goes; this can, at no cost to that thread
+    beyond the interpreter lock's hand-overs."""
+
+    def __init__(self, interval: float = 0.002):
+        import collections
+        import threading
+        self.interval = interval
+        self.main = threading.main_thread().ident
+        self.counts = collections.Counter()
+        self.samples = 0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+    def _loop(self):
+        while not self.stop.wait(self.interval):
+            frame = sys._current_frames().get(self.main)
+            seen = set()
+            while frame is not None:
+                code = frame.f_code
+                seen.add(f"{os.path.basename(code.co_filename)}:"
+                         f"{code.co_name}")
+                frame = frame.f_back
+            self.counts.update(seen)
+            self.samples += 1
+
+    def share(self, name: str) -> float:
+        return self.counts[name] / max(self.samples, 1)
+
+
+def phase_host(tmp, card, c4):
+    """Phase 17: the host questions.  (a) Two more fresh force_free
+    depth-4 CLI runs, with their stages and ingest sections (phase 4 is
+    the first sample of the spread); the second with the main thread's
+    stack sampled through the depth stages (``MainThreadSampler``): the
+    share of that time in each of the engine's and the runtime's steps,
+    those outside the timed sections included.  (b) One more with
+    cProfile on around ``DiscoveryEngine.run``: the functions of most own
+    time, every thread's (``build/chip_smoke_profile.pstats`` holds the
+    profile).  (c) A
+    depth-3 CLI run resumed to depth 4 from four copies, in turns with
+    its DB's secondary indices kept and dropped (dropped: the copy's
+    indices removed and ``RunDB.ensure_indices`` a no-op for the whole
+    resumed run), each with its stage and ingest sections."""
+    import cProfile
+    import io
+    import pstats
+    import sqlite3
+
+    from pde_engine_tpu_torch.pipeline import DiscoveryEngine
+    from pde_engine_tpu_torch.utils.db import RunDB
+    engine_run = DiscoveryEngine.run
+
+    def around_run(cm):
+        """Run ``DiscoveryEngine.run`` inside the context ``cm``."""
+        def run(self, *a, **kw):
+            with cm:
+                return engine_run(self, *a, **kw)
+        return run
+
+    sampler = MainThreadSampler()
+    for i in (1, 2):
+        d = os.path.join(tmp, f"p17_fresh{i}")
+        os.makedirs(d)
+        if i == 2:
+            DiscoveryEngine.run = around_run(sampler)
+        try:
+            rep = run_cli([], d)
+        finally:
+            DiscoveryEngine.run = engine_run
+        if counts_of(rep) != c4:
+            fail(f"fresh depth-4 run {i}: counts {counts_of(rep)} != {c4}")
+        say(f"  fresh run {i + 1} of force_free --max-depth 4 (phase 4 "
+            f"was the first): wall {rep['wall_seconds']:.1f} s")
+        stage_lines(rep, card)
+    stages = sum(st["seconds"] for st in rep["stats"])
+    steps = ("_run_depth_segmented", "drain_tail", "drain_head",
+             "_ingest_vec", "_gray_maybe_submit", "_emit_gray_part",
+             "_finalize_pass", "_match_known", "_add_row", "on_row",
+             "add_row", "expr_str", "_flush_gray", "on_batch", "on_depth",
+             "route_segmented", "launch", "timed", "_unpack_start",
+             "_unpack_finish")
+    shares = sorted(((k, sampler.share(k)) for k in sampler.counts
+                     if k.split(":")[1] in steps), key=lambda kv: -kv[1])
+    say(f"  main thread of fresh run 3, {sampler.samples} stack samples "
+        f"over its depth stages ({stages:.3f} s): share of the samples "
+        "(seconds at that share) in " + "; ".join(
+            f"{k} {v:.3f} ({v * stages:.3f} s)" for k, v in shares))
+
+    d = os.path.join(tmp, "p17_profiled")
+    os.makedirs(d)
+    prof = cProfile.Profile()
+    DiscoveryEngine.run = around_run(prof)
+    try:
+        rep = run_cli([], d)
+    finally:
+        DiscoveryEngine.run = engine_run
+    os.makedirs("build", exist_ok=True)
+    prof.dump_stats(os.path.join("build", "chip_smoke_profile.pstats"))
+    say(f"  cProfile on around the depth stages: wall "
+        f"{rep['wall_seconds']:.1f} s")
+    stage_lines(rep, card)
+    buf = io.StringIO()
+    st = pstats.Stats(prof, stream=buf)
+    st.sort_stats("tottime").print_stats(25)
+    say("  top 25 by own time (every thread):\n" + "\n".join(
+        ln for ln in buf.getvalue().splitlines() if ln.strip()))
+
+    d3 = os.path.join(tmp, "p17_d3")
+    os.makedirs(d3)
+    rep3 = run_cli(["--max-depth", "3", "--no-report-families"], d3)
+    table = "expressions_" + rep3["run_id"].replace("-", "_")
+    orig = RunDB.ensure_indices
+    for i, drop in enumerate((False, True, True, False)):
+        dc = os.path.join(tmp, f"p17_resume{i}")
+        shutil.copytree(d3, dc)
+        if drop:
+            con = sqlite3.connect(os.path.join(dc, "run.db"))
+            for col in ("norm", "sig", "status", "depth"):
+                con.execute(f"DROP INDEX IF EXISTS idx_{table}_{col}")
+            con.commit()
+            con.close()
+            RunDB.ensure_indices = lambda self: None
+        try:
+            rep = run_cli(["--resume-run", rep3["run_id"],
+                           "--no-report-families"], dc)
+        finally:
+            RunDB.ensure_indices = orig
+        if counts_of(rep) != c4:
+            fail(f"resume {i}: counts {counts_of(rep)} != {c4}")
+        say(f"  resumed 3->4 with the secondary indices "
+            f"{'dropped' if drop else 'kept'}: wall "
+            f"{rep['wall_seconds']:.1f} s")
+        stage_lines(rep, card)
+
+
+NEEDS = {5: {4}, 6: {4}, 7: {4}, 8: {6}, 10: {4}, 11: {4, 6, 7, 8},
+         12: {4}, 17: {4}}
 
 
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run (default: all; "
-                         "1 and 2 always run; a subset prints no result "
-                         "line)")
+                    help="comma-separated phases to run (default: 1-13; "
+                         "1 and 2 always run; any other set prints no "
+                         "result line)")
     args = ap.parse_args(argv)
-    phases = set(range(1, N_PHASES + 1))
+    phases = set(DEFAULT_PHASES)
     if args.phases:
         phases = {1, 2} | {int(x) for x in args.phases.split(",")}
         for ph in phases:
@@ -1606,12 +2043,47 @@ def main(argv=None) -> int:
                   "without their registry sidecars, resumed to depth 4")
             phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a)
             end(11)
+        bench_line = None
+        if 12 in phases:
+            begin(12, "bench: python -m pde_engine_tpu_torch.bench 3 (the "
+                  "depth-4 stream at the default batch)")
+            bench_line, phases_n["bench"] = phase_bench(tmp, rep4)
+            end(12)
+        if 13 in phases:
+            begin(13, "recall canaries: no-audit force_free depth 4 "
+                  "through DiscoveryEngine")
+            phases_n["canary"] = phase_canary(card,
+                                              c4 if 4 in phases else None)
+            end(13)
+        depth5 = {}
+        for k, audit in ((14, False), (15, True)):
+            if k in phases:
+                begin(k, "force_free --max-depth 5 "
+                      + ("(reject rows audited)" if audit
+                         else "--no-audit-rejects") + " through cli.main")
+                depth5[k] = phase_depth5(tmp, card, audit)
+                end(k)
+        if 16 in phases:
+            begin(16, "laplace --max-depth 5: default batch, --batch-size "
+                  "4096 and the per-op path, verdicts compared key by key")
+            phase_laplace(tmp, card)
+            end(16)
+        if 17 in phases:
+            begin(17, "host: two more fresh force_free depth-4 runs, one "
+                  "under cProfile, and resumes with and without the DB's "
+                  "secondary indices")
+            phase_host(tmp, card, c4)
+            end(17)
 
     say("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(t_phase.items())}))
     if families is not None:
         print(json.dumps({"families": families}), flush=True)
-    if phases != set(range(1, N_PHASES + 1)):
+    if bench_line is not None:
+        print(json.dumps({"bench": bench_line}), flush=True)
+    if depth5:
+        print(json.dumps({"depth5": depth5}), flush=True)
+    if phases != DEFAULT_PHASES:
         say(f"phases {sorted(phases)} passed in {time.time() - t_all:.1f} "
             "s (a subset: no result line)")
         return 0

@@ -15,10 +15,11 @@ multi-host and registry-sharding paths are not ported.
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +78,186 @@ def structured_run_kind(a_u: np.ndarray, b_u: Optional[np.ndarray],
     return None
 
 
+def _run_operands(kind: str, a_u: np.ndarray, b_u: Optional[np.ndarray],
+                  pos: int) -> Tuple[int, int]:
+    """(constant row, first row of the contiguous run) of a run-shaped
+    slice starting at ``pos`` (see :func:`structured_run_kind`)."""
+    if kind == "b":
+        return int(a_u[pos]), int(b_u[pos])
+    return (0 if b_u is None else int(b_u[pos])), int(a_u[pos])
+
+
+@dataclass
+class Launch:
+    """One screen-kernel launch of the segmented path, as
+    :func:`route_segmented` lays it out."""
+    kernel: str   # "segmented", "structured" or "tiled"
+    rows: int     # rows launched; tiled launches whole 512-row tiles
+    # (op name, first row in the launch, a uids, b uids or None), in
+    # ingest order
+    segs: List[Tuple[str, int, np.ndarray, Optional[np.ndarray]]]
+    # segmented: (ab [rows, 2], row_ops [rows]); tiled: (starts,
+    # const_uid, opkind), one entry per tile
+    index: Tuple[np.ndarray, ...] = ()
+    # structured: (const_uid, big0, op id, "a" or "b")
+    run: Tuple = ()
+
+    @property
+    def candidates(self) -> int:
+        return sum(s[2].size for s in self.segs)
+
+
+def route_segmented(batches: Iterable, super_rows: int, tiled_min_rows: int,
+                    capacity: Callable[[], int], structured: bool = True,
+                    tiled: bool = True) -> Iterator[Launch]:
+    """Lay the enumerator's ``(op_name, a_u, b_u)`` batches out as
+    launches, in the order the engine launches and ingests them:
+
+    - ``structured`` for a run of ``super_rows`` candidates with one
+      constant row and a contiguous uid range (the mixed superbatch
+      filled so far goes out first);
+    - ``tiled`` for a run of at least ``tiled_min_rows``, packed as
+      512-row tiles (the run's last tile is padded; a run whose padded
+      tail would read past ``capacity()`` rows takes the mixed path);
+    - ``segmented`` for the rest, one op id per row, a superbatch being
+      full when its segments, each rounded up to whole 512-row tiles as
+      in the JAX engine, fill ``super_rows``.
+
+    The generator is lazy and reads ``capacity()`` as it routes, so a
+    caller that appends cache rows between launches sees each decision
+    made on the current cache."""
+    n_tiles = super_rows // TILE
+    ab = np.zeros((super_rows, 2), np.int32)
+    row_ops = np.zeros(super_rows, np.int32)
+    segs: List = []
+    fill_tiles = fill_rows = 0
+    t_starts = np.zeros(n_tiles, np.int32)
+    t_const = np.zeros(n_tiles, np.int32)
+    t_opkind = np.zeros(n_tiles, np.int32)
+    t_segs: List = []
+    t_fill = 0
+
+    def mixed() -> Launch:
+        nonlocal ab, row_ops, segs, fill_tiles, fill_rows
+        ln = Launch("segmented", fill_rows, segs,
+                    (ab[:fill_rows], row_ops[:fill_rows]))
+        ab = np.zeros((super_rows, 2), np.int32)
+        row_ops = np.zeros(super_rows, np.int32)
+        segs = []
+        fill_tiles = fill_rows = 0
+        return ln
+
+    def tiles() -> Launch:
+        nonlocal t_starts, t_const, t_opkind, t_segs, t_fill
+        ln = Launch("tiled", t_fill * TILE, t_segs,
+                    (t_starts[:t_fill], t_const[:t_fill],
+                     t_opkind[:t_fill]))
+        t_starts = np.zeros(n_tiles, np.int32)
+        t_const = np.zeros(n_tiles, np.int32)
+        t_opkind = np.zeros(n_tiles, np.int32)
+        t_segs = []
+        t_fill = 0
+        return ln
+
+    for op_name, a_u, b_u in batches:
+        opid = OP_INDEX[op_name]
+        pos = 0
+        while pos < a_u.size:
+            rem = a_u.size - pos
+            if structured and rem >= super_rows:
+                kind = structured_run_kind(a_u, b_u, pos, super_rows)
+                if kind is not None:
+                    if fill_tiles:
+                        yield mixed()
+                    const_uid, big0 = _run_operands(kind, a_u, b_u, pos)
+                    yield Launch(
+                        "structured", super_rows,
+                        [(op_name, 0, a_u[pos:pos + super_rows],
+                          None if b_u is None
+                          else b_u[pos:pos + super_rows])],
+                        run=(const_uid, big0, opid, kind))
+                    pos += super_rows
+                    continue
+            if tiled and rem >= tiled_min_rows:
+                kind = structured_run_kind(a_u, b_u, pos, rem)
+                if kind is not None:
+                    const_uid, big0 = _run_operands(kind, a_u, b_u, pos)
+                    if big0 + (-(-rem // TILE)) * TILE <= capacity():
+                        opk = opid * 2 + (1 if kind == "b" else 0)
+                        off = 0
+                        while off < rem:
+                            room = (n_tiles - t_fill) * TILE
+                            if room == 0:
+                                yield tiles()
+                                continue
+                            take = min(rem - off, room)
+                            used = -(-take // TILE)
+                            tl = slice(t_fill, t_fill + used)
+                            t_starts[tl] = (big0 + off
+                                            + TILE * np.arange(used))
+                            t_const[tl] = const_uid
+                            t_opkind[tl] = opk
+                            t_segs.append((
+                                op_name, t_fill * TILE,
+                                a_u[pos + off:pos + off + take],
+                                None if b_u is None
+                                else b_u[pos + off:pos + off + take]))
+                            t_fill += used
+                            off += take
+                        pos += rem
+                        continue
+            room_rows = (n_tiles - fill_tiles) * TILE
+            if room_rows == 0:
+                yield mixed()
+                continue
+            take = min(rem, room_rows)
+            start = fill_rows
+            ab[start:start + take, 0] = a_u[pos:pos + take]
+            if b_u is not None:
+                ab[start:start + take, 1] = b_u[pos:pos + take]
+            row_ops[start:start + take] = opid
+            segs.append((op_name, start, a_u[pos:pos + take],
+                         None if b_u is None else b_u[pos:pos + take]))
+            fill_tiles += -(-take // TILE)
+            fill_rows += take
+            pos += take
+    if t_fill:
+        yield tiles()
+    if fill_tiles:
+        yield mixed()
+
+
+def tally_launch(t: List[int], rows: int, sizes) -> None:
+    """Add a launch of ``rows`` rows holding candidate segments of
+    ``sizes`` to ``t`` = [rows, candidates, rows of the 512-row tiles
+    that hold a candidate]."""
+    t[0] += rows
+    t[1] += sum(sizes)
+    t[2] += sum(-(-m // TILE) * TILE for m in sizes)
+
+
+def launched_rows_of(table: Dict[str, List[int]]
+                     ) -> Dict[str, Dict[str, int]]:
+    return {k: dict(zip(("rows", "candidates", "tile_rows"), v))
+            for k, v in table.items()}
+
+
+def launch_screen(spec: cuda_engine.ScreenSpec, cache: JetCache,
+                  ln: Launch, index: Tuple[torch.Tensor, ...], spoints,
+                  fpoints, plain: bool = False):
+    """Launch ``ln`` over ``cache`` through its ``cuda_engine`` entry point
+    (with ``plain``, its plain torch twin); ``index`` holds ``ln.index``
+    as tensors on the cache's device.  Returns the entry point's
+    ``(packed, jets, fj)``."""
+    fn = getattr(cuda_engine, ln.kernel + ("_ref" if plain else ""))
+    if ln.kernel == "structured":
+        const_uid, big0, op_id, big = ln.run
+        return fn(spec, cache.screen, cache.fp, const_uid, big0, op_id,
+                  spoints, fpoints, big, ln.rows)
+    args = (spec, cache.screen, cache.fp, *index, spoints, fpoints)
+    return fn(*args, ln.rows) if ln.kernel == "tiled" else fn(*args)
+
+
 def _const_in_f64_batch(jets: np.ndarray) -> np.ndarray:
     """Per-candidate constant flag for [N, P, T] float64 jets (fully
     relative: grad vs value magnitude)."""
@@ -124,6 +305,34 @@ class DepthStats:
     t_device: float = 0.0     # kernel launch + result transfer
     t_ingest: float = 0.0     # dedup + verdicts + rows
     t_gray: float = 0.0       # batched f64 rechecks
+    # seconds per section of _ingest_vec within t_ingest (only with
+    # PDE_INGEST_TIMERS set)
+    ingest_sections: Dict[str, float] = field(default_factory=dict)
+
+
+# Ingest sub-timers (PDE_INGEST_TIMERS=1), as in the JAX package: wall
+# seconds per section of _ingest_vec, moved into each depth's DepthStats
+# at its end and printed by the runtime after the depth line.  The flag is
+# read at import.
+_INGEST_TIMERS: Dict[str, float] = {}
+_TIME_INGEST = bool(os.environ.get("PDE_INGEST_TIMERS"))
+
+
+class _Section:
+    __slots__ = ("key", "t0")
+
+    def __init__(self, key: str):
+        self.key = key
+
+    def __enter__(self):
+        if _TIME_INGEST:
+            self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if _TIME_INGEST:
+            _INGEST_TIMERS[self.key] = (
+                _INGEST_TIMERS.get(self.key, 0.0)
+                + time.perf_counter() - self.t0)
 
 
 class _Passer:
@@ -457,63 +666,71 @@ class DiscoveryEngine:
         per-candidate Python only for screen passers."""
         n = a_u.size
         st.candidates += n
-        bb = b_u if b_u is not None else np.zeros(n, np.int32)
-        with np.errstate(over="ignore"):
-            struct = (a_u.astype(np.uint64)
-                      * np.uint64(0x9E3779B97F4A7C15)
-                      ^ bb.astype(np.uint64)
-                      * np.uint64(0xC2B2AE3D27D4EB4F)
-                      ^ np.uint64(op_salt(op_name)))
-        struct |= np.uint64(STRUCT_TAG)
-        keys = self._fp_keys(sr, n, struct)
 
-        enum = self.enumerator
-        new_idx = self.fp_to_uid.insert_batch(
-            keys, base_uid=enum.count_uniques())
+        with _Section("keys"):
+            bb = b_u if b_u is not None else np.zeros(n, np.int32)
+            with np.errstate(over="ignore"):
+                struct = (a_u.astype(np.uint64)
+                          * np.uint64(0x9E3779B97F4A7C15)
+                          ^ bb.astype(np.uint64)
+                          * np.uint64(0xC2B2AE3D27D4EB4F)
+                          ^ np.uint64(op_salt(op_name)))
+            struct |= np.uint64(STRUCT_TAG)
+            keys = self._fp_keys(sr, n, struct)
+
+        with _Section("dedup"):
+            enum = self.enumerator
+            new_idx = self.fp_to_uid.insert_batch(
+                keys, base_uid=enum.count_uniques())
         if new_idx.size == 0:
             return
         k_new = int(new_idx.size)
 
-        uid0, exprs = enum.add_uniques_bulk(
-            op_name, a_u[new_idx],
-            None if b_u is None else b_u[new_idx], depth,
-            retain_strings=retain_strings,
-            arena_strings=(self.config.audit_rejects or retain_strings))
-        if (exprs is None and self.native_sink is None
-                and self.config.audit_rejects):
-            blob = enum.arena.blob(
-                np.arange(uid0, uid0 + k_new, dtype=np.int64))
-            exprs = [s.decode() for s in blob.split(b"\x00")[:-1]]
+        with _Section("register"):
+            uid0, exprs = enum.add_uniques_bulk(
+                op_name, a_u[new_idx],
+                None if b_u is None else b_u[new_idx], depth,
+                retain_strings=retain_strings,
+                arena_strings=(self.config.audit_rejects or retain_strings))
+            if (exprs is None and self.native_sink is None
+                    and self.config.audit_rejects):
+                blob = enum.arena.blob(
+                    np.arange(uid0, uid0 + k_new, dtype=np.int64))
+                exprs = [s.decode() for s in blob.split(b"\x00")[:-1]]
         newkeys = keys[new_idx]
         st.unique += k_new
 
-        has_var = enum.f_has_var[uid0:uid0 + k_new]
-        is_const = sr.is_const[new_idx] | ~has_var
-        nonfin = ((~sr.fp_finite[new_idx] | sr.nonfinite[new_idx])
-                  & ~is_const)
-        passing = sr.screen_ok[new_idx] & ~is_const & ~nonfin
+        with _Section("verdicts"):
+            has_var = enum.f_has_var[uid0:uid0 + k_new]
+            is_const = sr.is_const[new_idx] | ~has_var
+            nonfin = ((~sr.fp_finite[new_idx] | sr.nonfinite[new_idx])
+                      & ~is_const)
+            passing = sr.screen_ok[new_idx] & ~is_const & ~nonfin
 
-        self._emit_rejects_bulk(
-            uid0, exprs, newkeys, depth, sr, new_idx,
-            is_const, nonfin, passing, on_row, on_rows)
+        with _Section("rejects"):
+            self._emit_rejects_bulk(
+                uid0, exprs, newkeys, depth, sr, new_idx,
+                is_const, nonfin, passing, on_row, on_rows)
 
-        pass_locals = np.nonzero(passing)[0]
-        for local in pass_locals.tolist():
-            uid = uid0 + local
-            u = _Passer(enum, uid)
-            if exprs is not None:
-                u._expr = exprs[local]
-            ev = self._ev_at(sr, int(new_idx[local]))
-            key = int(newkeys[local])
-            if ev["rel_max"] < self.config.f64_skip_below:
-                self._finalize_pass(u, ev, ev["rel_max"], "screen",
-                                    depth, st, on_row, key)
-            else:
-                self._gray.append((u, ev, key))
+        with _Section("passers"):
+            pass_locals = np.nonzero(passing)[0]
+            for local in pass_locals.tolist():
+                uid = uid0 + local
+                u = _Passer(enum, uid)
+                if exprs is not None:
+                    u._expr = exprs[local]
+                ev = self._ev_at(sr, int(new_idx[local]))
+                key = int(newkeys[local])
+                if ev["rel_max"] < self.config.f64_skip_below:
+                    self._finalize_pass(u, ev, ev["rel_max"], "screen",
+                                        depth, st, on_row, key)
+                else:
+                    self._gray.append((u, ev, key))
 
-        self._append_cache_section(out_s, out_f, k_new, new_idx,
-                                   append_cache, defer_append_to,
-                                   row_offset)
+        with _Section("cache_append"):
+            self._append_cache_section(out_s, out_f, k_new, new_idx,
+                                       append_cache, defer_append_to,
+                                       row_offset)
 
     def _append_cache_section(self, out_s, out_f, k_new: int,
                               new_idx: np.ndarray, append_cache: bool,
@@ -856,10 +1073,7 @@ class DiscoveryEngine:
         return self.config.use_segmented is not False
 
     def _tally_launch(self, kind: str, rows: int, sizes) -> None:
-        t = self.launch_rows[kind]
-        t[0] += rows
-        t[1] += sum(sizes)
-        t[2] += sum(-(-m // TILE) * TILE for m in sizes)
+        tally_launch(self.launch_rows[kind], rows, sizes)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -948,53 +1162,33 @@ class DiscoveryEngine:
 
     def _run_depth_segmented(self, depth: int, max_depth: int,
                              st: DepthStats, on_row, on_rows, on_batch):
-        """One kernel launch per ~batch_size candidates of MIXED ops (a
-        tile-aligned superbatch with a per-tile op id), plus the two
-        gather-bypass buffers for run-shaped blocks: whole-superbatch
-        runs (structured) and per-tile runs (tiled)."""
+        """The depth's candidates in the launches of
+        :func:`route_segmented`: mixed-op superbatches (segmented) and
+        the two gather-bypass kinds for run-shaped blocks (structured,
+        tiled), software-pipelined: launch k+1 goes out before launch k
+        is drained."""
         SUPER = max(TILE, (self.config.batch_size // TILE) * TILE)
-        n_tiles = SUPER // TILE
-        spec = self._spec
 
         def append_ok():
             return (depth < max_depth
                     or self.cache.n < self.config.final_append_limit)
 
-        gen = self.enumerator.vector_batches_at_depth(
-            depth, SUPER, max_parent_uid=self.cache.n)
-        # the mixed superbatch: its candidates back to back, one op id per
-        # row; it is full when its segments, each rounded up to whole
-        # 512-row tiles as in the JAX engine, fill n_tiles, so superbatch
-        # boundaries (hence the ingest order) follow the JAX engine's
-        ab = np.zeros((SUPER, 2), np.int32)
-        row_ops = np.zeros(SUPER, np.int32)
-        segs: List = []
-        fill_tiles = 0
-        fill_rows = 0
-        pending = None
-
-        def dispatch():
-            """Launch the superbatch's candidates, rows [0, fill_rows)."""
-            nonlocal ab, row_ops, segs, fill_tiles, fill_rows
-            n = fill_rows
+        def launch(ln: Launch):
             td = time.perf_counter()
-            packed, out_s, out_f = cuda_engine.segmented(
-                spec, self.cache.screen, self.cache.fp, self._dev(ab[:n]),
-                self._dev(row_ops[:n]), self._spoints, self._fpoints)
+            packed, out_s, out_f = launch_screen(
+                self._spec, self.cache, ln,
+                tuple(self._dev(x) for x in ln.index), self._spoints,
+                self._fpoints)
             st.t_device += time.perf_counter() - td
-            self.segmented_dispatches += 1
-            self._tally_launch("segmented", n, [s[2].size for s in segs])
-            item = (segs, packed, out_s, out_f)
-            ab = np.zeros((SUPER, 2), np.int32)
-            row_ops = np.zeros(SUPER, np.int32)
-            segs = []
-            fill_tiles = 0
-            fill_rows = 0
-            return item
+            name = f"{ln.kernel}_dispatches"
+            setattr(self, name, getattr(self, name) + 1)
+            self._tally_launch(ln.kernel, ln.rows,
+                               [s[2].size for s in ln.segs])
+            return (ln.segs, packed, out_s, out_f)
 
         def drain_head(item):
             """Fetch verdicts + gather the passer rows.  Runs before the
-            next superbatch's launch."""
+            next launch."""
             _, packed, _, out_f = item
             ti = time.perf_counter()
             state = self._unpack_start(packed, out_f)
@@ -1029,146 +1223,28 @@ class DiscoveryEngine:
             if on_batch is not None:
                 on_batch(st)
 
-        def advance(make_item):
-            """drain_head(pending) BEFORE the new launch, launch, then
-            finish draining the pending superbatch."""
-            nonlocal pending
+        def timed(gen):
+            while True:
+                te = time.perf_counter()
+                item = next(gen, None)
+                st.t_enum += time.perf_counter() - te
+                if item is None:
+                    return
+                yield item
+
+        batches = timed(self.enumerator.vector_batches_at_depth(
+            depth, SUPER, max_parent_uid=self.cache.n))
+        pending = None
+        for ln in route_segmented(
+                batches, SUPER, self.config.tiled_min_rows,
+                lambda: self.cache.capacity,
+                structured=self.config.use_structured is not False,
+                tiled=self.config.use_tiled is not False):
             state = drain_head(pending) if pending is not None else None
-            newitem = make_item()
+            item = launch(ln)
             if pending is not None:
                 drain_tail(pending, state)
-            pending = newitem
-
-        structured = self.config.use_structured is not False
-        tiled = self.config.use_tiled is not False
-
-        t_starts = np.zeros(n_tiles, np.int32)
-        t_const = np.zeros(n_tiles, np.int32)
-        t_opkind = np.zeros(n_tiles, np.int32)
-        t_segs: List = []
-        t_fill = 0
-
-        def dispatch_tiled():
-            """Launch the filled tiles only, rows [0, t_fill * 512)."""
-            nonlocal t_starts, t_const, t_opkind, t_segs, t_fill
-            live = t_fill * TILE
-            td = time.perf_counter()
-            packed, out_s, out_f = cuda_engine.tiled(
-                spec, self.cache.screen, self.cache.fp,
-                self._dev(t_starts[:t_fill]), self._dev(t_const[:t_fill]),
-                self._dev(t_opkind[:t_fill]), self._spoints, self._fpoints,
-                live)
-            st.t_device += time.perf_counter() - td
-            self.tiled_dispatches += 1
-            self._tally_launch("tiled", live, [s[2].size for s in t_segs])
-            item = (t_segs, packed, out_s, out_f)
-            t_starts = np.zeros(n_tiles, np.int32)
-            t_const = np.zeros(n_tiles, np.int32)
-            t_opkind = np.zeros(n_tiles, np.int32)
-            t_segs = []
-            t_fill = 0
-            return item
-
-        def add_tiled(op_name, kind, a_u, b_u, pos, m):
-            """Pack the run slice [pos, pos+m) into the tiled buffer,
-            splitting across superbatches when it overflows.  Pad rows
-            continue the contiguous uid ramp past the run's end and land
-            outside the segment's window."""
-            nonlocal t_fill
-            opk = OP_INDEX[op_name] * 2 + (1 if kind == "b" else 0)
-            if kind == "b":
-                const_uid, big0 = int(a_u[pos]), int(b_u[pos])
-            else:
-                big0 = int(a_u[pos])
-                const_uid = 0 if b_u is None else int(b_u[pos])
-            off = 0
-            while off < m:
-                room = (n_tiles - t_fill) * TILE
-                if room == 0:
-                    advance(dispatch_tiled)
-                    continue
-                take = min(m - off, room)
-                used = -(-take // TILE)
-                for j in range(used):
-                    t_starts[t_fill + j] = big0 + off + j * TILE
-                    t_const[t_fill + j] = const_uid
-                    t_opkind[t_fill + j] = opk
-                t_segs.append((op_name, t_fill * TILE,
-                               a_u[pos + off:pos + off + take],
-                               None if b_u is None
-                               else b_u[pos + off:pos + off + take]))
-                t_fill += used
-                off += take
-
-        def dispatch_structured(op_name, kind, a_u, b_u, pos):
-            if kind == "b":
-                const_uid, big0 = int(a_u[pos]), int(b_u[pos])
-            else:
-                big0 = int(a_u[pos])
-                const_uid = 0 if b_u is None else int(b_u[pos])
-            td = time.perf_counter()
-            packed, out_s, out_f = cuda_engine.structured(
-                spec, self.cache.screen, self.cache.fp, const_uid, big0,
-                OP_INDEX[op_name], self._spoints, self._fpoints, kind, SUPER)
-            st.t_device += time.perf_counter() - td
-            self.structured_dispatches += 1
-            self._tally_launch("structured", SUPER, [SUPER])
-            seg = (op_name, 0, a_u[pos:pos + SUPER],
-                   None if b_u is None else b_u[pos:pos + SUPER])
-            return ([seg], packed, out_s, out_f)
-
-        while True:
-            te = time.perf_counter()
-            item = next(gen, None)
-            st.t_enum += time.perf_counter() - te
-            if item is None:
-                break
-            op_name, a_u, b_u = item
-            if a_u.size == 0:
-                continue
-            opid = OP_INDEX[op_name]
-            pos = 0
-            while pos < a_u.size:
-                rem = a_u.size - pos
-                if structured and rem >= SUPER:
-                    kind = structured_run_kind(a_u, b_u, pos, SUPER)
-                    if kind is not None:
-                        if fill_tiles:
-                            advance(dispatch)
-                        advance(lambda: dispatch_structured(
-                            op_name, kind, a_u, b_u, pos))
-                        pos += SUPER
-                        continue
-                if tiled and rem >= self.config.tiled_min_rows:
-                    kind = structured_run_kind(a_u, b_u, pos, rem)
-                    if kind is not None:
-                        big0 = int((b_u if kind == "b" else a_u)[pos])
-                        pad_end = big0 + (-(-rem // TILE)) * TILE
-                        if pad_end <= self.cache.capacity:
-                            add_tiled(op_name, kind, a_u, b_u, pos, rem)
-                            pos += rem
-                            continue
-                        # the pad tile would read past the allocation:
-                        # take the mixed gather path instead
-                room_rows = (n_tiles - fill_tiles) * TILE
-                if room_rows == 0:
-                    advance(dispatch)
-                    continue
-                take = min(int(a_u.size) - pos, room_rows)
-                start = fill_rows
-                ab[start:start + take, 0] = a_u[pos:pos + take]
-                if b_u is not None:
-                    ab[start:start + take, 1] = b_u[pos:pos + take]
-                row_ops[start:start + take] = opid
-                segs.append((op_name, start, a_u[pos:pos + take],
-                             None if b_u is None else b_u[pos:pos + take]))
-                fill_tiles += -(-take // TILE)
-                fill_rows += take
-                pos += take
-        if t_fill:
-            advance(dispatch_tiled)
-        if fill_tiles:
-            advance(dispatch)
+            pending = item
         if pending is not None:
             drain_tail(pending, drain_head(pending))
 
@@ -1184,6 +1260,7 @@ class DiscoveryEngine:
         for depth in range(start_depth, max_depth + 1):
             t0 = time.perf_counter()
             st = DepthStats(depth=depth)
+            _INGEST_TIMERS.clear()
             if depth == 1:
                 prims = self.enumerator.primitive_candidates()
                 for group, evals, out_s, out_f in self._eval_tape_groups(
@@ -1205,6 +1282,8 @@ class DiscoveryEngine:
             self._flush_gray(depth, st, on_row)
             st.t_gray = time.perf_counter() - tg
             st.seconds = time.perf_counter() - t0
+            st.ingest_sections = dict(_INGEST_TIMERS)
+            _INGEST_TIMERS.clear()
             self.stats.append(st)
             if on_depth is not None:
                 on_depth(st)
@@ -1221,8 +1300,7 @@ class DiscoveryEngine:
         among them, and the rows of the 512-row tiles that hold a
         candidate.  ``segmented`` and ``universal`` launch exactly their
         candidates, and ``tiled`` exactly those tiles."""
-        return {k: dict(zip(("rows", "candidates", "tile_rows"), v))
-                for k, v in self.launch_rows.items()}
+        return launched_rows_of(self.launch_rows)
 
     # ------------------------------------------------------------------
     # Resume: cache seeding

@@ -154,6 +154,9 @@ class DiscoveryRun:
                       f"[{st.seconds:.1f}s, {rate:,.0f} cand/s | "
                       f"enum {st.t_enum:.1f} dev {st.t_device:.1f} "
                       f"ingest {st.t_ingest:.1f} gray {st.t_gray:.1f}]")
+            if st.ingest_sections:
+                self._log("    ingest breakdown: " + " ".join(
+                    f"{k} {v:.1f}" for k, v in st.ingest_sections.items()))
 
         try:
             self.engine.run(max_depth, on_row=on_row, on_depth=on_depth,

@@ -86,6 +86,27 @@ def test_depth3_counts_match_jax(engines):
     assert port.segmented_dispatches > 0 and port.universal_dispatches == 0
 
 
+def test_no_audit_depth3_recovers_recall_canaries(engines):
+    """The depth-3 recall canaries (pure-rho expressions, valid at every
+    depth) survive a no-audit force_free depth-3 run of the port as valid
+    rows whose dedup keys map back to their own uids, with the JAX
+    package's depth-3 knowns (the port of
+    tests/test_recall_canary.py at depth 3)."""
+    from pde_engine_tpu_torch import canary
+    from pde_engine_tpu_torch.pipeline import DiscoveryEngine
+    eng = DiscoveryEngine(load_problem("force_free"),
+                          SearchConfig(max_depth=3, audit_rejects=False),
+                          device="cpu")
+    eng.run(3)
+    assert _knowns(eng) == _knowns(engines["jax"])
+    assert not eng.rows or all(r.is_valid for r in eng.rows)
+    planted = [e for e, d in canary.CANARIES if d == 3]
+    assert len(planted) == 2
+    for expr in planted:
+        row = canary.locate(eng, expr)
+        assert row is not None and row.is_valid, expr
+
+
 def test_per_op_depth3_counts_match_jax(engines):
     """The per-op path (one ``universal`` launch per op batch) against
     the JAX engine's per-op path."""
