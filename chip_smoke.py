@@ -98,8 +98,10 @@ Phases, one line each (any failure exits non-zero):
 12. bench    — ``python -m pde_engine_tpu_torch.bench 3`` (the depth-4
               stream at the default batch) in a process of its own: one
               JSON line with the JAX bench's keys, phase 4's depth-4
-              candidates, the first launch of each kind bit-equal to its
-              plain twin;
+              candidates in phase 4's depth-4 launches of each kind, the
+              first launch of each kind bit-equal to its plain twin, its
+              own launch counts those of its warm-up and repetitions,
+              and the kernels' and verdict copies' device ms measured;
 13. canaries — a no-audit force_free depth-4 run through
               ``DiscoveryEngine``: 7/7 knowns, phase 4's counts, and the
               three recall canaries of ``pde_engine_tpu_torch/canary.py``
@@ -113,21 +115,25 @@ much of a call):
               minute (the ``--watch-run`` status, the ingest sections so
               far, peak RSS, device memory): depths 1-2 exact, 3-5 within
               1% of the TPU run (report_20260820_090829.txt), 7/7 knowns;
+              then the whole bench (seed depth 4) with phase 12's checks
+              against this run's depth 5: its candidates, and its
+              launches of each kind;
 15. depth 5 audited — the same run with its reject rows written;
 16. laplace  — ``--max-depth 5`` at the default batch, at
               ``--batch-size 4096`` and on the per-op path; each key whose
               verdict differs from the default run's is classed by
               whether the kept expression differs;
 17. host     — two more fresh force_free depth-4 runs (the spread of
-              the stage), one with cProfile around its depth stages (the
-              main thread; ``build/chip_smoke_profile.pstats``), and
-              a depth-3 run resumed to depth 4 in turns with its DB's
-              secondary indices kept and dropped.
+              the stage), the second with its main thread's stack
+              sampled through its depth stages, and a depth-3 run
+              resumed to depth 4 in turns with its DB's secondary
+              indices kept and dropped.
 
 The launch counts are reset just before each run of phases 4-9, 11
-and 13-15 and read just after it; phase 12's bench process sets its own
-to 0 when it starts and reports them in its line.  In the kernels line, ``launches`` is each kernel's count
-on its own path: phase 4 (the segmented main path, default batch) for
+and 13-15 and read just after it (phases 4, 14 and 15 also by depth);
+the bench process of phases 12 and 14 sets its own to 0 after its seed,
+just before its warm-up, and reports them in its line.  In the kernels
+line, ``launches`` is each kernel's count on its own path: phase 4 (the segmented main path, default batch) for
 segmented and tiled, phase 5 (``--batch-size 4096``) for structured,
 phase 6 (the per-op path) for universal; ``launches_by_phase`` has
 every phase's counts; ``path_ms`` and ``live_rows`` are the summed
@@ -1334,21 +1340,54 @@ def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
         f"row for row ({n:,} rows); wall {rep['wall_seconds']:.1f} s")
 
 
-def phase_bench(tmp, rep4):
-    """Phase 12: ``python -m pde_engine_tpu_torch.bench 3`` (the depth-4
-    stream at the default batch) in a process of its own, with a HOME of
-    its own so that its seed is made afresh and left in ``tmp``: one JSON
-    line with the JAX bench's keys, phase 4's depth-4 candidates, the
-    first launch of each kind bit-equal to its plain twin, and each
-    routed kernel launched (the bench reports its entry points' launch
-    counts, set to 0 when it starts).  Returns the result and those
-    counts."""
-    env = dict(os.environ, HOME=os.path.join(tmp, "p12_home"))
+class DepthLaunches:
+    """While active, the entry points' launch counts made in each depth
+    of the segmented path (``DiscoveryEngine._run_depth_segmented``),
+    by depth, in ``by_depth``."""
+
+    def __init__(self):
+        from pde_engine_tpu_torch.pipeline import DiscoveryEngine
+        self.engine = DiscoveryEngine
+        self.orig = DiscoveryEngine._run_depth_segmented
+        self.by_depth = {}
+
+    def __enter__(self):
+        from pde_engine_tpu_torch.parallel import cuda_engine as ce
+        orig, by_depth = self.orig, self.by_depth
+
+        def run_depth(eng, depth, *a, **kw):
+            before = dict(ce.LAUNCHES)
+            try:
+                return orig(eng, depth, *a, **kw)
+            finally:
+                by_depth[depth] = {k: ce.LAUNCHES[k] - before[k]
+                                   for k in before}
+        self.engine._run_depth_segmented = run_depth
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._run_depth_segmented = self.orig
+
+
+def run_bench(tmp, tag, seed_depth, depth_st, depth_launches, timeout):
+    """``python -m pde_engine_tpu_torch.bench <seed_depth>`` at the
+    default batch in a process of its own, with a HOME of its own so that
+    its seed is made afresh and left in ``tmp``.  Checks: one JSON line
+    with the JAX bench's keys; the whole stream, of the candidates of
+    the engine's depth ``seed_depth + 1`` (``depth_st``, its stage) in
+    the launches of each kind that depth made (``depth_launches``); the
+    first launch of each kind bit-equal to its plain twin; the bench's
+    own launch counts (set to 0 after its seed, before its warm-up)
+    those of one warm-up launch of each kind routed and REPS + 1 runs of
+    the stream (the timed ones and the traced one); the kernels' and
+    the verdict copies' device ms read from the activity trace.
+    Returns the line."""
+    env = dict(os.environ, HOME=os.path.join(tmp, f"{tag}_home"))
     for k in ("PDE_BENCH_BATCH", "PDE_BENCH_MAX_SUPERS"):
         env.pop(k, None)
     r = subprocess.run([sys.executable, "-m", "pde_engine_tpu_torch.bench",
-                        "3"], capture_output=True, text=True, env=env,
-                       timeout=900,
+                        str(seed_depth)], capture_output=True, text=True,
+                       env=env, timeout=timeout,
                        cwd=os.path.dirname(os.path.abspath(__file__)))
     rc, text = r.returncode, r.stdout
     say("  " + "\n  ".join(r.stderr.strip().splitlines()[-4:]))
@@ -1360,31 +1399,52 @@ def phase_bench(tmp, rep4):
     if not {"metric", "value", "unit", "vs_baseline"} <= set(res):
         fail(f"the bench line lacks keys: {sorted(res)}")
     det = res["detail"]
-    want = next(st["candidates"] for st in rep4["stats"]
-                if st["depth"] == 4)
-    if det["candidates_timed"] != want or det["stream_truncated"]:
+    if det["candidates_timed"] != depth_st["candidates"] \
+            or det["stream_truncated"]:
         fail(f"the bench timed {det['candidates_timed']} candidates "
-             f"(truncated: {det['stream_truncated']}), phase 4's depth 4 "
-             f"has {want}")
-    kinds = {k for k, n in det["launches"].items() if n}
+             f"(truncated: {det['stream_truncated']}), the engine's depth "
+             f"{depth_st['depth']} has {depth_st['candidates']}")
+    routed = det["launches"]
+    if routed != {k: depth_launches[k] for k in routed}:
+        fail(f"the bench routed {routed}, the engine's depth "
+             f"{depth_st['depth']} launched {depth_launches}")
+    kinds = {k for k, n in routed.items() if n}
     differ = det["first_launch_rows_differ"] or {}
     if set(differ) != kinds or any(differ.values()):
         fail(f"first launch of each kind against its plain twin: rows "
              f"differing {differ}, kinds launched {sorted(kinds)}")
     launches = det["kernel_launches"]
-    if any(launches[k] <= 0 for k in kinds):
-        fail(f"bench: kernels {sorted(kinds)} routed, launches {launches}")
-    say(f"  one line; {det['candidates_timed']:,} candidates (phase 4's "
-        f"depth 4), launches {det['launches']}, first launch of each "
-        f"kind bit-equal to its plain twin ({differ}); value "
+    want = {k: routed.get(k, 0) * (det["reps"] + 1)
+            + (1 if routed.get(k) else 0) for k in launches}
+    if launches != want:
+        fail(f"bench: kernel launches {launches}, want {want} (one warm-up "
+             f"launch and {det['reps'] + 1} runs of {routed})")
+    if det["kernel_device_ms"] is None or det["copy_device_ms"] is None:
+        fail(f"bench: the activity trace read no device time "
+             f"(events {det.get('trace_events')})")
+    say(f"  one line; {det['candidates_timed']:,} candidates (the engine's "
+        f"depth {depth_st['depth']}), launches {routed} (the engine's), "
+        f"capacity slack {det['capacity_slack_rows']:,} rows, first launch "
+        f"of each kind bit-equal to its plain twin ({differ}); value "
         f"{res['value']:,.0f} {res['unit']} (median of {det['reps']}: "
         f"{det['seconds']}); kernel device ms "
-        f"{fmt_ms(det['kernel_device_ms'])}, verdict copies "
+        f"{fmt_ms(det['kernel_device_ms'])} "
+        f"({det.get('kernel_device_ms_by_kernel')}), verdict copies "
         f"{fmt_ms(det['copy_device_ms'])} ms ({det['verdict_bytes']:,} B)"
         f"; seed {det['seed_seconds']:.1f} s (cache hit: "
-        f"{det['seed_cache_hit']}); kernel launches {launches}; "
+        f"{det['seed_cache_hit']}; its launches "
+        f"{det['seed_kernel_launches']}); kernel launches {launches}; "
         f"{det['card']}")
-    return res, launches
+    return res
+
+
+def phase_bench(tmp, rep4, d4_launches):
+    """Phase 12: the bench at seed depth 3 (the depth-4 stream at the
+    default batch) against phase 4's depth 4 (``run_bench``).  Returns
+    the result and the bench's launch counts."""
+    st4 = next(st for st in rep4["stats"] if st["depth"] == 4)
+    res = run_bench(tmp, "p12", 3, st4, d4_launches, 900)
+    return res, res["detail"]["kernel_launches"]
 
 
 def phase_canary(card, c4):
@@ -1492,7 +1552,7 @@ def phase_depth5(tmp, card, audit: bool):
     d = os.path.join(tmp, "p15" if audit else "p14")
     os.makedirs(d)
     extra = [] if audit else ["--no-audit-rejects"]
-    with Watcher(os.path.join(d, "run.db")):
+    with Watcher(os.path.join(d, "run.db")), DepthLaunches() as by_depth:
         ce.reset_launch_counts()
         rep = run_cli(extra, d, depth=5)
         launches = dict(ce.LAUNCHES)
@@ -1512,11 +1572,18 @@ def phase_depth5(tmp, card, audit: bool):
     st5 = next(st for st in rep["stats"] if st["depth"] == 5)
     say(f"  7/7 knowns; counts {counts}, within 1% of the TPU run's "
         f"{TPU_D5} at depths 3-5; depth 5: {st5['candidates']:,} "
-        f"candidates (TPU 59,171,371); launches {launches}; wall "
-        f"{rep['wall_seconds']:.1f} s")
-    return {"audit": audit, "counts": counts, "launches": launches,
-            "wall_s": rep["wall_seconds"], "knowns": found,
-            "stats": rep["stats"]}
+        f"candidates (TPU 59,171,371); launches {launches}, at depth 5 "
+        f"{by_depth.by_depth[5]}; wall {rep['wall_seconds']:.1f} s")
+    out = {"audit": audit, "counts": counts, "launches": launches,
+           "launches_by_depth": by_depth.by_depth,
+           "wall_s": rep["wall_seconds"], "knowns": found,
+           "stats": rep["stats"]}
+    if not audit:
+        say("  the whole bench (seed depth 4, the depth-5 stream) against "
+            "this run's depth 5:")
+        out["bench"] = run_bench(tmp, "p14", 4, st5, by_depth.by_depth[5],
+                                 1200)
+    return out
 
 
 def phase_laplace(tmp, card):
@@ -1609,17 +1676,11 @@ def phase_host(tmp, card, c4):
     the first sample of the spread); the second with the main thread's
     stack sampled through the depth stages (``MainThreadSampler``): the
     share of that time in each of the engine's and the runtime's steps,
-    those outside the timed sections included.  (b) One more with
-    cProfile on around ``DiscoveryEngine.run``: the functions of most own
-    time, every thread's (``build/chip_smoke_profile.pstats`` holds the
-    profile).  (c) A
-    depth-3 CLI run resumed to depth 4 from four copies, in turns with
-    its DB's secondary indices kept and dropped (dropped: the copy's
-    indices removed and ``RunDB.ensure_indices`` a no-op for the whole
-    resumed run), each with its stage and ingest sections."""
-    import cProfile
-    import io
-    import pstats
+    those outside the timed sections included.  (b) A depth-3 CLI run
+    resumed to depth 4 from four copies, in turns with its DB's
+    secondary indices kept and dropped (dropped: the copy's indices
+    removed and ``RunDB.ensure_indices`` a no-op for the whole resumed
+    run), each with its stage and ingest sections."""
     import sqlite3
 
     from pde_engine_tpu_torch.pipeline import DiscoveryEngine
@@ -1661,25 +1722,6 @@ def phase_host(tmp, card, c4):
         f"over its depth stages ({stages:.3f} s): share of the samples "
         "(seconds at that share) in " + "; ".join(
             f"{k} {v:.3f} ({v * stages:.3f} s)" for k, v in shares))
-
-    d = os.path.join(tmp, "p17_profiled")
-    os.makedirs(d)
-    prof = cProfile.Profile()
-    DiscoveryEngine.run = around_run(prof)
-    try:
-        rep = run_cli([], d)
-    finally:
-        DiscoveryEngine.run = engine_run
-    os.makedirs("build", exist_ok=True)
-    prof.dump_stats(os.path.join("build", "chip_smoke_profile.pstats"))
-    say(f"  cProfile on around the depth stages: wall "
-        f"{rep['wall_seconds']:.1f} s")
-    stage_lines(rep, card)
-    buf = io.StringIO()
-    st = pstats.Stats(prof, stream=buf)
-    st.sort_stats("tottime").print_stats(25)
-    say("  top 25 by own time (every thread):\n" + "\n".join(
-        ln for ln in buf.getvalue().splitlines() if ln.strip()))
 
     d3 = os.path.join(tmp, "p17_d3")
     os.makedirs(d3)
@@ -1818,7 +1860,8 @@ def main(argv=None) -> int:
         phases_n, timers = {}, {}
         if 4 in phases:
             begin(4, "main path: force_free --max-depth 4 --device cuda")
-            with LaunchTimer(trace=True) as timer:
+            with LaunchTimer(trace=True) as timer, \
+                    DepthLaunches() as by_depth4:
                 ce.reset_launch_counts()
                 rep4 = run_cli([], d4)
                 phases_n["main"] = launches = dict(ce.LAUNCHES)
@@ -1832,7 +1875,8 @@ def main(argv=None) -> int:
                          f"launches {launches}, dispatches {disp4}")
             say(f"  7/7 knowns; counts {c4}; dispatches {disp4}; wall "
                 f"{rep4['wall_seconds']:.1f} s")
-            say(f"  launches (main path): {launches}")
+            say(f"  launches (main path): {launches}; by depth "
+                f"{by_depth4.by_depth}")
             lr = rep4["launched_rows"]
             for k in GROUP_KERNELS:
                 rows, cands, tile_rows = (lr[k][x] for x in (
@@ -2047,7 +2091,8 @@ def main(argv=None) -> int:
         if 12 in phases:
             begin(12, "bench: python -m pde_engine_tpu_torch.bench 3 (the "
                   "depth-4 stream at the default batch)")
-            bench_line, phases_n["bench"] = phase_bench(tmp, rep4)
+            bench_line, phases_n["bench"] = phase_bench(
+                tmp, rep4, by_depth4.by_depth[4])
             end(12)
         if 13 in phases:
             begin(13, "recall canaries: no-audit force_free depth 4 "
@@ -2070,8 +2115,8 @@ def main(argv=None) -> int:
             end(16)
         if 17 in phases:
             begin(17, "host: two more fresh force_free depth-4 runs, one "
-                  "under cProfile, and resumes with and without the DB's "
-                  "secondary indices")
+                  "with its main thread sampled, and resumes with and "
+                  "without the DB's secondary indices")
             phase_host(tmp, card, c4)
             end(17)
 

@@ -9,14 +9,22 @@ own engine runs force_free through ``seed_depth`` (default 4) with
 candidate stream is then laid out in launches exactly as the engine lays
 it out (:func:`pipeline.route_segmented`: structured for whole-superbatch
 runs, tiled for per-tile runs, segmented for the rest) and timed through
-the screen kernels, the host ingest left out.
+the screen kernels, the host ingest left out.  The engine reads the
+cache's capacity as it routes, and the cache grows as the depth appends
+rows; the bench routes on the capacity the cache had when the depth
+began.  A run's parents lie below the cache's rows, so the capacity
+decides a run only when it ends within 511 rows of it:
+``detail.capacity_slack_rows`` (capacity less rows) of at least 511
+means no decision of the bench can differ from the engine's.
 
 Timing: every launch's index arrays are on the device before the clock
-starts; one launch of each kind warms up (on the GPU its outputs are also
-held bit for bit against the plain torch twin, and a difference fails the
-bench); then each repetition launches the whole stream back to back on
-one stream, copies each launch's 12-byte verdicts into one pinned host
-buffer (``non_blocking``) and synchronises once.  A launch's screen and
+starts; the entry points' launch counts are then set to 0 (the seed's
+launches are reported apart); one launch of each kind warms up (on the
+GPU its outputs are also held bit for bit against the plain torch twin,
+and a difference fails the bench); then each repetition launches the
+whole stream back to back on one stream, copies each launch's 12-byte
+verdicts into one pinned host buffer (``non_blocking``) and
+synchronises once.  A launch's screen and
 fingerprint jets are dropped as soon as it is enqueued.  ``value`` is the
 median of ``REPS`` repetitions; one more, untimed, repetition runs under
 the CUDA activity trace for the kernels' and the verdict copies' device
@@ -27,10 +35,11 @@ Environment: ``PDE_BENCH_BATCH`` (candidates per superbatch, default
 launches timed; default none, the whole stream).  ``--device cuda`` (the
 default) without a usable GPU raises.
 
-The seed (the cache rows through ``seed_depth`` and the stream) is kept
-in ``~/.cache/pde_engine_tpu_torch_bench/``, keyed by a digest of the
-port's sources by their paths relative to the repository root, the
-problem, the seed depth, the batch and the device type.
+The seed (the cache rows through ``seed_depth``, the cache's capacity
+and the stream) is kept in ``~/.cache/pde_engine_tpu_torch_bench/``,
+keyed by a digest of the port's sources by their paths relative to the
+repository root, the problem, the seed depth, the batch and the device
+type.
 
 Stdout carries exactly one JSON line, ``{"metric", "value", "unit",
 "vs_baseline", "detail"}``; progress goes to stderr.  On SIGTERM before
@@ -121,10 +130,10 @@ def source_digest(root: str) -> str:
     return h.hexdigest()
 
 
-def seed_cache_path(seed_depth: int, batch: int, device: torch.device
-                    ) -> str:
+def seed_cache_path(seed_depth: int, batch: int, device: torch.device,
+                    problem: str = PROBLEM) -> str:
     key = hashlib.sha256(
-        f"{source_digest(repo_root())}|{PROBLEM}|{seed_depth}|{batch}|"
+        f"{source_digest(repo_root())}|{problem}|{seed_depth}|{batch}|"
         f"{device.type}".encode()).hexdigest()[:16]
     d = os.path.join(os.path.expanduser("~"), ".cache",
                      "pde_engine_tpu_torch_bench")
@@ -144,21 +153,27 @@ def smi_line() -> Optional[str]:
         and out.stdout.strip() else None
 
 
-def _engine(seed_depth: int, batch: int, device) -> DiscoveryEngine:
-    return DiscoveryEngine(load_problem(PROBLEM), SearchConfig(
+def _engine(seed_depth: int, batch: int, device, problem: str
+            ) -> DiscoveryEngine:
+    return DiscoveryEngine(load_problem(problem), SearchConfig(
         max_depth=seed_depth, batch_size=batch, audit_rejects=False,
         snapshot_jets=False), device=device)
 
 
-def seed(seed_depth: int, batch: int, device: torch.device):
+def seed(seed_depth: int, batch: int, device: torch.device,
+         problem: str = PROBLEM):
     """(engine whose cache holds the rows through ``seed_depth``, the
     depth-``seed_depth + 1`` stream as ``(op_name, a_u, b_u)`` batches,
-    uniques through ``seed_depth``, whether the seed cache hit)."""
-    path = seed_cache_path(seed_depth, batch, device)
+    uniques through ``seed_depth``, whether the seed cache hit, the
+    cache's capacity when the engine's depth ``seed_depth`` ended)."""
+    path = seed_cache_path(seed_depth, batch, device, problem)
     if os.path.exists(path):
         with np.load(path, allow_pickle=False) as z:
-            eng = _engine(seed_depth, batch, device)
+            eng = _engine(seed_depth, batch, device, problem)
             eng.cache.load_rows(z["screen"], z["fp"])
+            capacity = int(z["capacity"])
+            if eng.cache.capacity < capacity:
+                eng.cache._grow(capacity)
             names = [str(s) for s in z["op_names"].tolist()]
             stream, pos = [], 0
             a_cat, b_cat = z["a"], z["b"]
@@ -170,22 +185,24 @@ def seed(seed_depth: int, batch: int, device: torch.device):
             n_uniques = int(z["n_uniques"])
         _progress(f"seed cache hit: {n_uniques} uniques, {len(stream)} "
                   f"stream batches ({path})")
-        return eng, stream, n_uniques, True
+        return eng, stream, n_uniques, True, capacity
     _progress(f"seeding depths 1..{seed_depth} through the port's engine "
               f"on {device}")
-    eng = _engine(seed_depth, batch, device)
+    eng = _engine(seed_depth, batch, device, problem)
     with contextlib.redirect_stdout(sys.stderr):
         eng.run(seed_depth)
     n_uniques = eng.enumerator.count_uniques()
+    capacity = eng.cache.capacity
     stream = list(eng.enumerator.vector_batches_at_depth(
         seed_depth + 1, batch, max_parent_uid=eng.cache.n))
-    _progress(f"seed done: {n_uniques} uniques, cache rows {eng.cache.n}, "
-              f"{len(stream)} stream batches")
+    _progress(f"seed done: {n_uniques} uniques, cache rows {eng.cache.n} "
+              f"of {capacity}, {len(stream)} stream batches")
     names = sorted({s[0] for s in stream})
     ix = {n: i for i, n in enumerate(names)}
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + f".{os.getpid()}.tmp.npz"
     np.savez(tmp, n_uniques=np.int64(n_uniques),
+             capacity=np.int64(capacity),
              screen=eng.cache.screen[:eng.cache.n].cpu().numpy(),
              fp=eng.cache.fp[:eng.cache.n].cpu().numpy(),
              ops=np.asarray([ix[s[0]] for s in stream], np.int16),
@@ -197,7 +214,20 @@ def seed(seed_depth: int, batch: int, device: torch.device):
              op_names=np.asarray(names))
     os.replace(tmp, path)
     _progress(f"seed cache saved: {path}")
-    return eng, stream, n_uniques, False
+    return eng, stream, n_uniques, False, capacity
+
+
+def assemble(stream, batch: int, tiled_min_rows: int, capacity: int,
+             max_supers: Optional[int] = None):
+    """(the stream's launches as the engine lays them out on a cache of
+    ``capacity`` rows, whether ``max_supers`` cut them)."""
+    launches: List[Launch] = []
+    for ln in route_segmented(iter(stream), batch, tiled_min_rows,
+                              lambda: capacity):
+        if max_supers is not None and len(launches) >= max_supers:
+            return launches, True
+        launches.append(ln)
+    return launches, False
 
 
 def launched_rows(launches: List[Launch]) -> Dict[str, Dict[str, int]]:
@@ -239,20 +269,15 @@ def main(argv=None, out: Optional[Output] = None) -> int:
 
     cuda_engine.reset_launch_counts()
     t_seed = time.perf_counter()
-    eng, stream, n_uniques, hit = seed(args.seed_depth, batch, device)
+    eng, stream, n_uniques, hit, capacity = seed(args.seed_depth, batch,
+                                                 device)
     t_seed = time.perf_counter() - t_seed
+    seed_launches = dict(cuda_engine.LAUNCHES)
     cache, spec = eng.cache, eng._spec
 
     t_asm = time.perf_counter()
-    launches: List[Launch] = []
-    truncated = False
-    for ln in route_segmented(iter(stream), batch,
-                              eng.config.tiled_min_rows,
-                              lambda: cache.capacity):
-        if max_supers is not None and len(launches) >= max_supers:
-            truncated = True
-            break
-        launches.append(ln)
+    launches, truncated = assemble(stream, batch, eng.config.tiled_min_rows,
+                                   capacity, max_supers)
     del stream
     index = [tuple(torch.from_numpy(x).to(device) for x in ln.index)
              for ln in launches]
@@ -266,9 +291,13 @@ def main(argv=None, out: Optional[Output] = None) -> int:
     kinds = {k: sum(ln.kernel == k for ln in launches)
              for k in ("segmented", "structured", "tiled")}
     _progress(f"assembled {len(launches)} launches {kinds}, {candidates} "
-              f"candidates, {int(offsets[-1])} rows"
+              f"candidates, {int(offsets[-1])} rows, capacity slack "
+              f"{capacity - cache.n} rows"
               + (" (stream truncated)" if truncated else ""))
 
+    # from here on the counts are the bench's own: one warm-up launch of
+    # each kind routed, then every launch of each repetition
+    cuda_engine.reset_launch_counts()
     differ = {} if device.type == "cuda" else None
     for k in kinds:
         i = next((i for i, ln in enumerate(launches) if ln.kernel == k),
@@ -317,9 +346,11 @@ def main(argv=None, out: Optional[Output] = None) -> int:
                 "batch": batch,
                 "launches": kinds,
                 "launched_rows": launched_rows(launches),
-                # the entry points' launch counts over this whole run
-                # (seed, warm-up, repetitions, trace)
+                "capacity_slack_rows": capacity - cache.n,
+                # the entry points' launch counts: warm-up, repetitions
+                # and trace; the seed's apart
                 "kernel_launches": dict(cuda_engine.LAUNCHES),
+                "seed_kernel_launches": seed_launches,
                 "verdict_bytes": int(offsets[-1]) * 12,
                 "seconds": {"median": med, "min": min(secs),
                             "max": max(secs)},
@@ -368,14 +399,14 @@ def device_times(rep, n_launches: int) -> dict:
         elif "Memcpy" in e.name and "DtoH" in e.name:
             copies.append(ms)
     n_kernels = sum(len(v) for v in by_kernel.values())
+    events = {"kernels": n_kernels, "copies": len(copies)}
     if n_kernels != n_launches or len(copies) != n_launches:
         return {"kernel_device_ms": None, "copy_device_ms": None,
-                "trace_events": {"kernels": n_kernels,
-                                 "copies": len(copies)}}
+                "trace_events": events}
     return {"kernel_device_ms": sum(map(sum, by_kernel.values())),
             "kernel_device_ms_by_kernel": {k: sum(v) for k, v in
                                            by_kernel.items() if v},
-            "copy_device_ms": sum(copies)}
+            "copy_device_ms": sum(copies), "trace_events": events}
 
 
 if __name__ == "__main__":

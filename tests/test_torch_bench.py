@@ -4,9 +4,11 @@ sub-timers (``PDE_INGEST_TIMERS=1``) on the CPU.
 The bench at ``--device cpu``, seed depth 2 and ``PDE_BENCH_BATCH=4096``
 times the force_free depth-3 stream through the plain kernel twins: its
 one JSON line must count the port engine's own depth-3 candidates and
-launches at that batch.  The timers must time the sections of the JAX
-package's ``_ingest_vec`` by the same names, only with the variable set,
-within ``t_ingest``, and the runtime must print them after each depth.
+launches at that batch.  laplace's depth-4 stream at batch 512 holds
+the structured and tiled runs that stream lacks.  The timers must time
+the sections of the JAX package's ``_ingest_vec`` by the same names,
+only with the variable set, within ``t_ingest``, and the runtime must
+print them after each depth.
 """
 
 import ast
@@ -61,6 +63,7 @@ def test_bench_times_the_engines_depth3_stream(tmp_path, capsys,
     assert det["depth_timed"] == 3 and det["reps"] == 5
     assert not det["stream_truncated"] and not det["seed_cache_hit"]
     assert det["kernel_device_ms"] is None and det["card"] is None
+    assert det["capacity_slack_rows"] >= bench.TILE - 1
     assert det["seconds"]["min"] <= det["seconds"]["median"] \
         <= det["seconds"]["max"]
 
@@ -88,6 +91,36 @@ def test_bench_times_the_engines_depth3_stream(tmp_path, capsys,
     for k in ("candidates_timed", "launches", "launched_rows",
               "cache_uniques"):
         assert again["detail"][k] == det[k], k
+
+
+def test_bench_routes_structured_and_tiled_runs_as_the_engine(
+        tmp_path, monkeypatch):
+    """laplace's depth-4 stream at batch 512 holds whole-superbatch and
+    per-tile runs: the bench lays it out in the launches of each kind, of
+    the rows, that the port engine's own depth 4 makes at that batch."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    eng, stream, _, hit, capacity = bench.seed(3, 512, torch.device("cpu"),
+                                               problem="laplace")
+    assert not hit and capacity - eng.cache.n >= bench.TILE - 1
+    launches, truncated = bench.assemble(stream, 512,
+                                         eng.config.tiled_min_rows, capacity)
+    assert not truncated
+    kinds = {k: sum(ln.kernel == k for ln in launches)
+             for k in ("segmented", "structured", "tiled")}
+    assert all(kinds.values()), kinds
+
+    ref = DiscoveryEngine(load_problem("laplace"), SearchConfig(
+        max_depth=4, batch_size=512, audit_rejects=False,
+        snapshot_jets=False), device="cpu")
+    ref.run(3)
+    before, rows_before = ref.dispatch_counts(), ref.launched_rows()
+    ref.run(4, start_depth=4)
+    after, rows_after = ref.dispatch_counts(), ref.launched_rows()
+    assert sum(ln.candidates for ln in launches) == ref.stats[3].candidates
+    assert kinds == {k: after[k] - before[k] for k in kinds}
+    assert bench.launched_rows(launches) == {
+        k: {f: rows_after[k][f] - rows_before[k][f] for f in v}
+        for k, v in bench.launched_rows(launches).items()}
 
 
 def test_bench_seed_digest_ignores_where_the_sources_lie(tmp_path):
