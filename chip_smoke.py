@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``pde_engine_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py                  # phases 1-13, 18 and 19
+    python3 chip_smoke.py                  # phases 1-13 and 18-20
     python3 chip_smoke.py --phases 3,9     # a subset (no result line)
     python3 chip_smoke.py --phases 14      # force_free depth 5, alone
 
@@ -130,7 +130,30 @@ Phases, one line each (any failure exits non-zero):
               card for force_free's seven knowns and ``rho*z`` (the
               library smoke): knowns under 1e-6, ``rho*z`` about 0.78,
               verdicts equal to the CPU twin's, jets within 3e-5 of them
-              (scaled).
+              (scaled);
+20. mesh     — the multi-device paths on the one card, force_free depth
+              4 at the default batch: (a) ``--devices 1`` through
+              ``cli.main``, whose rows must equal the per-op path's row
+              for row (phase 6's run, else one of its own) with 7/7;
+              (b) through the library on a mesh ``[cuda:0, cuda:0]``
+              with a replicated cache and (c) with ``shard_cache=True``,
+              each to depth 3 with (a)'s rows of depths 1-3, then (c) to
+              depth 4 with a window of ``9,134 // 2 + 1`` rows a shard:
+              no truncation, (a)'s rows row for row, 7/7; each run's
+              ``universal`` launches must be the engine's count of
+              non-empty shards, and no other kernel launches; (d) two ``--multihost --shard-registry`` CLI
+              processes sharing the card over gloo
+              (``PDE_ENGINE_NUM_PROCESSES=2``, ``PDE_ENGINE_PROCESS_ID``,
+              ``PDE_ENGINE_COORDINATOR`` on a free local port), to depth
+              3 and resumed to depth 4: each names gloo on its first
+              line, both ranks print the same per-depth counts, their
+              dedup maps sum to the uniques, both key shard files exist,
+              rank 1 writes nothing, the writer's rows equal (a)'s, and
+              both ranks launch ``universal``; a failed rank kills the
+              pair and fails the phase; (e) ``dryrun_multichip(2,
+              "cuda")`` and ``python -m pde_engine_tpu_torch.bench
+              --devices 1`` in a process of its own: (a)'s depth-4
+              candidates, and (a)'s depth-4 launches in each repetition.
 
 Phases 14-17 run only when ``--phases`` names them (each alone fills
 much of a call):
@@ -155,7 +178,7 @@ much of a call):
               indices kept and dropped.
 
 The launch counts are reset just before each run of phases 4-9, 11,
-13-15 and 18-19 and read just after it (phases 4, 14 and 15 also by
+13-15 and 18-20 and read just after it (phases 4, 14 and 15 also by
 depth);
 the bench process of phases 12 and 14 sets its own to 0 after its seed,
 just before its warm-up, and reports them in its line.  In the kernels
@@ -187,7 +210,10 @@ beside force_free's from the same turns, its bound, its error against
 its twin and its launches in each pass of phase 18; the lines
 before the kernels line hold phase 9's runs (``families``), phase 12's
 bench line (``bench``), phases 14-15's runs (``depth5``), phase 18's
-(``omega``) and phase 19's (``tape``), each where its phase ran.
+(``omega``), phase 19's (``tape``) and phase 20's (``mesh``), each
+where its phase ran; ``launches_by_phase`` holds phase 20's runs under
+``mesh_*``, ``multihost_rank*`` (each rank's own count, both of its
+runs), ``dryrun`` and ``mesh_bench``.
 ``path_shape`` holds structured's and universal's numbers at
 their paths' launch shapes.  The last lines are one JSON object
 describing the kernels, the card line and the result object.  Imports
@@ -219,6 +245,7 @@ PER_OP_ROWS = 502    # the per-op path's mean launch at depth 4 (723,618
 STRUCT_ROWS = 4096   # a structured launch at --batch-size 4096
 RAGGED_ROWS = (1, 37)  # universal launches whose last block ends in a warp
 DEPTH3_ROWS = 9134   # cache rows of the depth <= 3 uniques (5 + 153 + 8,976)
+MESH_LIB_DEPTH = 3   # phase 20's (b) and (c) with the default window
 EXP_LOG_OPS = ("exp", "exp_neg", "log", "exp_mul", "log_mul")
 ULP_BOUND = 4
 VALID_SPREAD = 0.001  # phases 5 and 6 vs phase 4 valid counts per depth
@@ -235,9 +262,9 @@ PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
 OWN_PATH = {"segmented": "main", "structured": "batch_4096",
             "tiled": "main", "universal": "per_op"}
-N_PHASES = 19
-# 14-17 run only when asked for; 18 and 19 came later, in the default set
-DEFAULT_PHASES = set(range(1, 14)) | {18, 19}
+N_PHASES = 20
+# 14-17 run only when asked for; 18-20 came later, in the default set
+DEFAULT_PHASES = set(range(1, 14)) | {18, 19, 20}
 # phases 14-15: the TPU run of force_free to depth 5,
 # problems/force_free/outputs/report_20260820_090829.txt (59,171,371
 # depth-5 candidates in its reproduction JSON)
@@ -1284,7 +1311,7 @@ def check_main(report, card):
 
 
 def api_run(db_dir, depth, resume_of=None, log=None, problem="force_free",
-            **cfg):
+            mesh=None, **cfg):
     """A DiscoveryRun through the library entry points (the per-op path
     has no CLI flag, as in the JAX package); with ``resume_of`` a run id,
     the run is resumed and extended to ``depth`` (with ``log`` a list,
@@ -1295,7 +1322,7 @@ def api_run(db_dir, depth, resume_of=None, log=None, problem="force_free",
     from pde_engine_tpu_torch.utils.config import SearchConfig
     kw = dict(config=SearchConfig(max_depth=depth, **cfg),
               db_path=os.path.join(db_dir, "run.db"), device="cuda",
-              verbose=False, report_families=False)
+              verbose=False, report_families=False, mesh=mesh)
     seeded = None
     if resume_of is None:
         run = DiscoveryRun(problem, **kw)
@@ -1509,13 +1536,15 @@ def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
 
 class DepthLaunches:
     """While active, the entry points' launch counts made in each depth
-    of the segmented path (``DiscoveryEngine._run_depth_segmented``),
-    by depth, in ``by_depth``."""
+    of the segmented path (``DiscoveryEngine._run_depth_segmented``; with
+    ``method="_run_depth_per_op"`` the per-op path), by depth, in
+    ``by_depth``."""
 
-    def __init__(self):
+    def __init__(self, method: str = "_run_depth_segmented"):
         from pde_engine_tpu_torch.pipeline import DiscoveryEngine
         self.engine = DiscoveryEngine
-        self.orig = DiscoveryEngine._run_depth_segmented
+        self.method = method
+        self.orig = getattr(DiscoveryEngine, method)
         self.by_depth = {}
 
     def __enter__(self):
@@ -1529,11 +1558,11 @@ class DepthLaunches:
             finally:
                 by_depth[depth] = {k: ce.LAUNCHES[k] - before[k]
                                    for k in before}
-        self.engine._run_depth_segmented = run_depth
+        setattr(self.engine, self.method, run_depth)
         return self
 
     def __exit__(self, *exc):
-        self.engine._run_depth_segmented = self.orig
+        setattr(self.engine, self.method, self.orig)
 
 
 def run_bench(tmp, tag, seed_depth, depth_st, depth_launches, timeout):
@@ -2144,6 +2173,287 @@ def phase_host(tmp, card, c4):
         stage_lines(rep, card)
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_pair(args, d, tag, timeout=600):
+    """``python -m pde_engine_tpu_torch <args> --multihost`` as two
+    processes sharing the card (``PDE_ENGINE_NUM_PROCESSES=2``,
+    ``PDE_ENGINE_PROCESS_ID``, ``PDE_ENGINE_COORDINATOR`` on a free local
+    port), each in a directory of its own.  If either fails or the pair
+    outlives ``timeout``, both are killed and the phase fails.  Returns
+    each rank's output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs, logs = [], []
+    for r in (0, 1):
+        cwd = os.path.join(d, f"rank{r}")
+        os.makedirs(cwd, exist_ok=True)
+        logs.append(os.path.join(d, f"{tag}_rank{r}.log"))
+        env = dict(os.environ, PDE_ENGINE_NUM_PROCESSES="2",
+                   PDE_ENGINE_PROCESS_ID=str(r),
+                   PDE_ENGINE_COORDINATOR=f"127.0.0.1:{port}",
+                   PYTHONPATH=here)
+        with open(logs[-1], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "pde_engine_tpu_torch", *args,
+                 "--multihost"], cwd=cwd, env=env, stdout=fh,
+                stderr=subprocess.STDOUT))
+    t0 = time.time()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs
+                   if p.poll() is not None and p.returncode != 0]
+            if bad or time.time() - t0 > timeout:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for p, log in zip(procs, logs):
+        with open(log) as fh:
+            texts.append(fh.read())
+    if any(p.returncode != 0 for p in procs):
+        for r, t in enumerate(texts):
+            say(f"  rank {r} output (last lines):\n    "
+                + "\n    ".join(t.strip().splitlines()[-15:]))
+        fail(f"{tag}: ranks exited {[p.returncode for p in procs]} after "
+             f"{time.time() - t0:.1f} s")
+    return texts
+
+
+def rank_record(text):
+    """(backend, [(depth, candidates, uniques)], the rank's closing
+    record) from a ``--multihost`` run's output."""
+    import re
+    first = text.splitlines()[0] if text else ""
+    m = re.match(r"distributed: rank (\d+) of 2, backend (\w+)", first)
+    if m is None:
+        fail(f"the run's first line names no backend: {first!r}")
+    depths = [tuple(int(x) for x in g) for g in re.findall(
+        r"^  depth (\d+): (\d+) candidates, (\d+) unique", text, re.M)]
+    rec = re.search(r"^process (\d) of 2: (\d+) uniques, dedup map (\d+) "
+                    r"keys, (\d+) shard launches, kernel launches (\{.*\})$",
+                    text, re.M)
+    if rec is None:
+        fail("a rank printed no closing record")
+    return m.group(2), depths, {
+        "rank": int(rec.group(1)), "uniques": int(rec.group(2)),
+        "map_keys": int(rec.group(3)), "shard_launches": int(rec.group(4)),
+        "launches": json.loads(rec.group(5))}
+
+
+def mesh_report(rep, tag, card, ref_db, ref_rep, db, launches, depth=4):
+    """The checks every one-process mesh run shares: the knowns (7/7 at
+    depth 4), the per-op run's rows of its depths row for row, universal
+    launches only, one for each non-empty shard the engine counted."""
+    if depth == 4 and len(rep["paper_solutions_found"]) != 7:
+        fail(f"{tag}: knowns {rep['paper_solutions_found']}")
+    n = same_rows(ref_db, ref_rep, db, rep, f"WHERE depth <= {depth}")
+    m = rep["mesh"]
+    if (launches["universal"] != m["shard_launches"]
+            or launches["universal"] <= 0
+            or any(launches[k] for k in ("segmented", "structured",
+                                         "tiled"))):
+        fail(f"{tag}: launches {launches}, the engine counted "
+             f"{m['shard_launches']} shard launches")
+    layout = "uid-range-sharded" if m["shard_cache"] else "replicated"
+    say(f"  {tag}: mesh {m['devices']} ({layout} cache), backend "
+        f"{m['backend'] or 'none (one process)'}; depth {depth}; "
+        f"{len(rep['paper_solutions_found'])} knowns; rows equal the "
+        f"per-op run's row for row ({n:,}); "
+        f"{rep['dispatches']['universal']} op batches, universal launches "
+        f"{launches['universal']} (one per non-empty shard); wall "
+        f"{rep['wall_seconds']:.1f} s")
+    stage_lines(rep, card)
+    return n
+
+
+def phase_mesh(tmp, card, per_op):
+    """Phase 20: the mesh paths on the card (module docstring).
+    ``per_op`` is phase 6's (db, report) when it ran.  Returns the
+    phase's record and its launch counts by run."""
+    from pde_engine_tpu_torch.dryrun import dryrun_multichip
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    from pde_engine_tpu_torch.parallel.mesh import CandidateMesh
+    from pde_engine_tpu_torch.runtime import DiscoveryRun
+    from pde_engine_tpu_torch.utils.config import SearchConfig
+    out, launches = {}, {}
+    dirs = {k: os.path.join(tmp, f"p20{k}") for k in
+            ("ref", "a", "b", "c", "c2", "d")}
+    for d in dirs.values():
+        os.makedirs(d)
+    if per_op is None:
+        rep_ref, _ = api_run(dirs["ref"], 4, use_segmented=False)
+        per_op = (os.path.join(dirs["ref"], "run.db"), rep_ref)
+    ref_db, ref_rep = per_op
+
+    # (a) --devices 1 through the CLI
+    with DepthLaunches("_run_depth_per_op") as by_depth:
+        ce.reset_launch_counts()
+        rep_a = run_cli(["--devices", "1", "--no-report-families"],
+                        dirs["a"])
+        launches["mesh_cli"] = dict(ce.LAUNCHES)
+    db_a = os.path.join(dirs["a"], "run.db")
+    mesh_report(rep_a, "(a) --devices 1", card, ref_db, ref_rep, db_a,
+                launches["mesh_cli"])
+    st4 = next(st for st in rep_a["stats"] if st["depth"] == 4)
+    out["cli_devices_1"] = {"counts": counts_of(rep_a),
+                            "wall_s": rep_a["wall_seconds"],
+                            "launches": launches["mesh_cli"]}
+
+    # (b), (c): two shards on one card, through the library, to depth 3
+    # (the default run's time; the depth-4 shard-cache run follows)
+    mesh2 = CandidateMesh(["cuda:0", "cuda:0"])
+    for k, tag, cfg in (("b", "mesh_replicated", {}),
+                        ("c", "mesh_shard_cache", {"shard_cache": True})):
+        ce.reset_launch_counts()
+        rep, _ = api_run(dirs[k], MESH_LIB_DEPTH, mesh=mesh2, **cfg)
+        launches[tag] = dict(ce.LAUNCHES)
+        mesh_report(rep, f"({k}) {tag}", card, db_a, rep_a,
+                    os.path.join(dirs[k], "run.db"), launches[tag],
+                    MESH_LIB_DEPTH)
+        out[tag] = {"wall_s": rep["wall_seconds"], "depth": MESH_LIB_DEPTH,
+                    "launches": launches[tag],
+                    "stages": rep["stats"][1:]}
+    # (c) to depth 4 with a window of DEPTH3_ROWS // 2 + 1 rows a shard:
+    # one shard could not hold the depth-4 parents, the mesh can
+    window = DEPTH3_ROWS // 2 + 1
+    ce.reset_launch_counts()
+    run = DiscoveryRun("force_free", config=SearchConfig(
+        max_depth=4, shard_cache=True, max_cache_rows=window),
+        db_path=os.path.join(dirs["c2"], "run.db"), device="cuda",
+        verbose=False, report_families=False, mesh=mesh2)
+    rep_c2, text = captured(lambda: run.run(4))
+    launches["mesh_window"] = dict(ce.LAUNCHES)
+    n_cache = run.engine.cache.n
+    run.close()
+    if "truncated" in text or n_cache < DEPTH3_ROWS:
+        fail(f"(c) window of {window} rows a shard: cache {n_cache} rows "
+             f"of {DEPTH3_ROWS} parents; truncation {'truncated' in text}")
+    mesh_report(rep_c2, f"(c) mesh_window, {window} rows a shard", card,
+                db_a, rep_a, os.path.join(dirs["c2"], "run.db"),
+                launches["mesh_window"])
+    say(f"  (c) no truncation: cache {n_cache:,} rows, the {DEPTH3_ROWS:,} "
+        "uniques through depth 3 over two shards of "
+        f"{window:,} rows")
+    out["mesh_window"] = {"wall_s": rep_c2["wall_seconds"],
+                          "window_per_shard": window, "cache_rows": n_cache,
+                          "launches": launches["mesh_window"],
+                          "stage_d4": next(st for st in rep_c2["stats"]
+                                           if st["depth"] == 4)}
+
+    # (d) two processes on the card over gloo, sharded registry
+    shared = os.path.join(dirs["d"], "shared")
+    os.makedirs(shared)
+    common = ["--problem", "force_free", "--device", "cuda",
+              "--shard-registry", "--no-report-families", "--db-path",
+              os.path.join(shared, "run.db")]
+    t0 = time.time()
+    first = run_pair(common + ["--max-depth", "3"], dirs["d"], "d3")
+    import re
+    run_id = re.search(r"^Run (\S+):", first[0], re.M).group(1)
+    second = run_pair(common + ["--max-depth", "4", "--resume-run", run_id],
+                      dirs["d"], "resume")
+    wall_d = time.time() - t0
+    recs = []
+    for r in (0, 1):
+        b1, dep1, rec1 = rank_record(first[r])
+        b2, dep2, rec2 = rank_record(second[r])
+        if {b1, b2} != {"gloo"}:
+            fail(f"rank {r}: backends {b1}, {b2}; processes that share a "
+                 "card take gloo")
+        recs.append((dep1 + dep2, rec1, rec2))
+        launches[f"multihost_rank{r}"] = {
+            k: rec1["launches"][k] + rec2["launches"][k]
+            for k in rec1["launches"]}
+    if recs[0][0] != recs[1][0]:
+        fail(f"the ranks' depths differ: {recs[0][0]} against {recs[1][0]}")
+    uniques = recs[0][2]["uniques"]
+    keys = [recs[r][2]["map_keys"] for r in (0, 1)]
+    if sum(keys) != uniques or min(keys) == 0:
+        fail(f"dedup maps {keys} do not partition the {uniques} uniques")
+    for r in (0, 1):
+        if os.listdir(os.path.join(dirs["d"], f"rank{r}")):
+            fail(f"rank {r} wrote into its directory: "
+                 f"{os.listdir(os.path.join(dirs['d'], f'rank{r}'))}")
+        if not os.path.exists(os.path.join(
+                shared, f"run.db.registry.keys.{r}.npz")):
+            fail(f"no key shard file of rank {r}")
+        if launches[f"multihost_rank{r}"]["universal"] <= 0:
+            fail(f"rank {r} launched no universal kernel")
+    reports = sorted(f for f in os.listdir(shared)
+                     if f.startswith("reproduction_") and f.endswith(".json"))
+    if len(reports) != 2:
+        fail(f"{len(reports)} report sets for the pair's 2 runs: {reports}")
+    with open(os.path.join(shared, reports[-1])) as fh:
+        rep_d = json.load(fh)
+    if len(rep_d["paper_solutions_found"]) != 7:
+        fail(f"(d) knowns {rep_d['paper_solutions_found']}")
+    n_d = same_rows(db_a, rep_a, os.path.join(shared, "run.db"), rep_d)
+    ex = rep_d["mesh"]["exchange"]
+    say(f"  (d) 2 processes on one card, gloo, sharded registry: depth 3 "
+        f"then resumed to 4 in {wall_d:.1f} s; both ranks "
+        f"{recs[0][0]}; dedup maps {keys} keys (sum {uniques:,}, the "
+        f"uniques); the writer's rows equal (a)'s row for row ({n_d:,}); "
+        f"rank 1 wrote nothing; key shards of ranks 0 and 1; universal "
+        f"launches {launches['multihost_rank0']['universal']} and "
+        f"{launches['multihost_rank1']['universal']}; the writer's "
+        f"resumed exchange {ex['calls']} all-gathers, "
+        f"{ex['seconds']:.3f} s, {ex['bytes'] / 1e6:.1f} MB")
+    stage_lines(rep_d, card)
+    out["multihost"] = {"wall_s": wall_d, "depths": recs[0][0],
+                        "map_keys": keys, "exchange_resumed_rank0": ex,
+                        "launches": {r: launches[f"multihost_rank{r}"]
+                                     for r in (0, 1)},
+                        "stage_d4": next(st for st in rep_d["stats"]
+                                         if st["depth"] == 4)}
+
+    # (e) the dry run over two shards of the card, and the mesh bench
+    ce.reset_launch_counts()
+    dry, text = captured(lambda: dryrun_multichip(2, "cuda"))
+    launches["dryrun"] = dict(ce.LAUNCHES)
+    say("  (e) " + "\n      ".join(text.strip().splitlines()))
+    env = dict(os.environ, HOME=os.path.join(tmp, "p20_home"))
+    env.pop("PDE_BENCH_BATCH", None)
+    r = subprocess.run([sys.executable, "-m", "pde_engine_tpu_torch.bench",
+                        "--devices", "1"], capture_output=True, text=True,
+                       env=env, timeout=900,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = r.stdout.splitlines()
+    if r.returncode != 0 or len(lines) != 1:
+        fail(f"bench --devices 1 returned {r.returncode}, {len(lines)} "
+             f"lines: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+    bench = json.loads(lines[0])
+    det = bench["detail"]
+    per_rep = det["launches_per_rep"]
+    want = by_depth.by_depth[4]
+    if (bench["metric"] != "mesh_sharded_validations_per_sec"
+            or det["candidates_timed"] != st4["candidates"]
+            or per_rep != want or det["first_batch_rows_differ"] != 0):
+        fail(f"bench --devices 1: {det['candidates_timed']} candidates "
+             f"(depth 4: {st4['candidates']}), launches a repetition "
+             f"{per_rep} (the mesh engine's depth 4: {want}), first batch "
+             f"rows differing {det['first_batch_rows_differ']}")
+    launches["mesh_bench"] = det["kernel_launches"]
+    say(f"  (e) bench --devices 1: {bench['value']:,.0f} "
+        f"{bench['unit']} (median of {det['reps']}: {det['seconds']}); "
+        f"{det['candidates_timed']:,} candidates (depth 4's) in "
+        f"{det['batches']} batches, launches a repetition {per_rep} (the "
+        f"mesh engine's depth 4); first batch bit-equal to its plain twin; "
+        f"{det['card']}")
+    out["dryrun"] = dry
+    out["bench"] = bench
+    return out, launches
+
+
 NEEDS = {5: {4}, 6: {4}, 7: {4}, 8: {6}, 10: {4}, 11: {4, 6, 7, 8},
          12: {4}, 17: {4}}
 
@@ -2153,7 +2463,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: 1-13, "
-                         "18, 19; "
+                         "18-20; "
                          "1 and 2 always run; any other set prints no "
                          "result line)")
     args = ap.parse_args(argv)
@@ -2538,6 +2848,17 @@ def main(argv=None) -> int:
                   "make_search_kernel on the card")
             tape_run = phase_tape(card)
             end(19)
+        mesh_run = None
+        if 20 in phases:
+            begin(20, "mesh: --devices 1 through cli.main; [cuda:0, "
+                  "cuda:0] replicated and uid-range-sharded; two "
+                  "--multihost --shard-registry processes over gloo; "
+                  "dryrun_multichip(2); bench --devices 1")
+            mesh_run, mesh_n = phase_mesh(
+                tmp, card, (os.path.join(d6, "run.db"), rep6)
+                if 6 in phases else None)
+            phases_n.update(mesh_n)
+            end(20)
 
     say("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(t_phase.items())}))
@@ -2551,6 +2872,8 @@ def main(argv=None) -> int:
         print(json.dumps({"omega": omega_run}), flush=True)
     if tape_run is not None:
         print(json.dumps({"tape": tape_run}), flush=True)
+    if mesh_run is not None:
+        print(json.dumps({"mesh": mesh_run}), flush=True)
     if phases != DEFAULT_PHASES:
         say(f"phases {sorted(phases)} passed in {time.time() - t_all:.1f} "
             "s (a subset: no result line)")

@@ -2,6 +2,7 @@
 GPU.
 
     python -m pde_engine_tpu_torch.bench [seed_depth] [--device cuda|cpu]
+    python -m pde_engine_tpu_torch.bench [seed_depth] --devices K
 
 Counterpart of ``main`` in the JAX package's ``bench.py``.  The port's
 own engine runs force_free through ``seed_depth`` (default 4) with
@@ -45,6 +46,18 @@ Stdout carries exactly one JSON line, ``{"metric", "value", "unit",
 "vs_baseline", "detail"}``; progress goes to stderr.  On SIGTERM before
 that line, the best measurement so far is printed instead, flagged
 ``partial``; after it, nothing more is printed.
+
+``--devices K`` (:func:`bench_mesh`, the JAX ``bench_mesh``) times the
+mesh instead: the port's per-op engine runs force_free through
+``seed_depth`` (default 3), its cache is copied onto every device of a
+K-device mesh (the first K cards, or K CPU shards with ``--device
+cpu``), and the depth-``seed_depth + 1`` stream, one batch of at most
+``PDE_BENCH_BATCH`` candidates per op as the engine's per-op path makes
+them, goes through the replicated mesh call
+(``incremental.make_op_kernel_sharded``: one ``universal`` launch per
+non-empty shard), each batch's verdicts copied to one pinned host
+buffer; ``mesh_sharded_validations_per_sec`` is the median of ``REPS``
+repetitions, with the launches of each kind in a repetition.
 """
 
 from __future__ import annotations
@@ -255,8 +268,12 @@ def rows_differ(a, b) -> int:
 
 def main(argv=None, out: Optional[Output] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("seed_depth", nargs="?", type=int, default=4)
+    ap.add_argument("seed_depth", nargs="?", type=int, default=None,
+                    help="depths seeded before the timed one (default 4; "
+                         "3 with --devices)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="time the replicated mesh call over K devices")
     args = ap.parse_args(argv)
     out = out or Output()
     device = resolve_device(args.device)
@@ -264,6 +281,11 @@ def main(argv=None, out: Optional[Output] = None) -> int:
     if batch <= 0 or batch % TILE:
         raise ValueError(f"PDE_BENCH_BATCH={batch}: want a positive "
                          f"multiple of {TILE}")
+    if args.devices is not None:
+        return bench_mesh(args.devices, 3 if args.seed_depth is None
+                          else args.seed_depth, device, batch, out)
+    if args.seed_depth is None:
+        args.seed_depth = 4
     cap = os.environ.get("PDE_BENCH_MAX_SUPERS")
     max_supers = int(cap) if cap else None
 
@@ -374,6 +396,130 @@ def main(argv=None, out: Optional[Output] = None) -> int:
                   f"({candidates / secs[-1]:,.0f} candidates/s)")
     out.emit(result(secs, device_times(one_rep, len(launches))
                     if device.type == "cuda" else None))
+    return 0
+
+
+MESH_METRIC = "mesh_sharded_validations_per_sec"
+
+
+def bench_mesh(n_devices: int, seed_depth: int, device: torch.device,
+               batch: int, out: Output) -> int:
+    """The mesh bench (module docstring, ``--devices``)."""
+    from .parallel.incremental import JetCache, make_op_kernel_sharded
+    from .parallel.mesh import candidate_mesh
+    mesh = candidate_mesh(n_devices, device)
+    _progress(f"seeding depths 1..{seed_depth} through the port's per-op "
+              f"engine on {mesh.home}")
+    t_seed = time.perf_counter()
+    eng = DiscoveryEngine(load_problem(PROBLEM), SearchConfig(
+        max_depth=seed_depth, batch_size=batch, audit_rejects=False,
+        snapshot_jets=False, use_segmented=False), device=mesh.home)
+    with contextlib.redirect_stdout(sys.stderr):
+        eng.run(seed_depth)
+    p = eng.problem
+    cache = JetCache(len(p.screen_points), eng.cache.sdim
+                     // len(p.screen_points), len(p.fingerprint_points),
+                     mesh.home, initial_capacity=eng.cache.capacity,
+                     mesh=mesh)
+    snap = eng.cache.snapshot()
+    cache.load_rows(snap["screen"], snap["fp"])
+    t_seed = time.perf_counter() - t_seed
+    kw = dict(order=p.residual_order, residual_key=p.get_residual_key(),
+              screen_rtol=float(eng.screen_rtol),
+              n_screen=len(p.screen_points),
+              n_fp=len(p.fingerprint_points))
+    stream = []
+    for op_name, a_u, b_u in eng.enumerator.vector_batches_at_depth(
+            seed_depth + 1, batch, max_parent_uid=eng.cache.n):
+        if a_u.size == 0:
+            continue
+        ab = np.zeros((a_u.size, 2), np.int32)
+        ab[:, 0] = a_u
+        if b_u is not None:
+            ab[:, 1] = b_u
+        stream.append((op_name, torch.from_numpy(ab).to(mesh.home)))
+    calls = {op: make_op_kernel_sharded(mesh, op, **kw)
+             for op in {op for op, _ in stream}}
+    candidates = sum(int(ab.shape[0]) for _, ab in stream)
+    offsets = np.concatenate([[0], np.cumsum(
+        [int(ab.shape[0]) for _, ab in stream])]).astype(np.int64)
+    verdicts = torch.empty((candidates, 3), dtype=torch.int32,
+                           pin_memory=device.type == "cuda")
+
+    def sync():
+        for d in set(mesh.devices):
+            _sync(d)
+
+    sync()
+    _progress(f"{len(stream)} batches, {candidates} candidates over "
+              f"{mesh}")
+    # warm-up: the first batch, held bit for bit to the plain twin on the
+    # card
+    cuda_engine.reset_launch_counts()
+    op0, ab0 = stream[0]
+    got = calls[op0](cache, ab0, eng._spoints, eng._fpoints)
+    differ = None
+    if device.type == "cuda":
+        ref = cuda_engine.universal_ref(
+            eng._spec, cache.screen, cache.fp, ab0,
+            cuda_engine.incremental.OP_INDEX[op0], eng._spoints,
+            eng._fpoints)
+        differ = rows_differ(got[:3], ref)
+        if differ:
+            raise RuntimeError(f"{op0}: {differ} of {int(ab0.shape[0])} "
+                               "rows of the first batch differ from the "
+                               "plain torch twin")
+    del got
+    cuda_engine.reset_launch_counts()
+
+    def one_rep():
+        for (op_name, ab), lo, hi in zip(stream, offsets[:-1].tolist(),
+                                         offsets[1:].tolist()):
+            packed = calls[op_name](cache, ab, eng._spoints,
+                                    eng._fpoints)[0]
+            verdicts[lo:hi].copy_(packed, non_blocking=True)
+        sync()
+
+    card = smi_line() if device.type == "cuda" else None
+
+    def result(secs: List[float]) -> dict:
+        med = statistics.median(secs)
+        value = candidates / med
+        return {
+            "metric": MESH_METRIC, "value": value,
+            "unit": "validations/s", "vs_baseline": value / BASELINE,
+            "detail": {
+                "problem": PROBLEM, "n_devices": mesh.size,
+                "devices": [str(d) for d in mesh.devices],
+                "device": (torch.cuda.get_device_name(mesh.home)
+                           if device.type == "cuda" else "cpu"),
+                "card": card, "candidates_timed": candidates,
+                "depth_timed": seed_depth + 1, "batch": batch,
+                "batches": len(stream),
+                "cache_rows": cache.n,
+                # the entry points' launches over the repetitions, and in
+                # one: a launch per non-empty shard of each batch
+                "kernel_launches": dict(cuda_engine.LAUNCHES),
+                "launches_per_rep": {
+                    k: v // len(secs) for k, v in
+                    cuda_engine.LAUNCHES.items()},
+                "first_batch_rows_differ": differ,
+                "seconds": {"median": med, "min": min(secs),
+                            "max": max(secs)},
+                "rep_seconds": secs, "reps": len(secs),
+                "seed_seconds": t_seed,
+            }}
+
+    secs: List[float] = []
+    for rep in range(REPS):
+        sync()
+        t0 = time.perf_counter()
+        one_rep()
+        secs.append(time.perf_counter() - t0)
+        out.partial = result(secs)
+        _progress(f"rep {rep + 1}/{REPS}: {secs[-1]:.4f} s "
+                  f"({candidates / secs[-1]:,.0f} candidates/s)")
+    out.emit(result(secs))
     return 0
 
 

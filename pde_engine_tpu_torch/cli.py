@@ -5,14 +5,21 @@
     python -m pde_engine_tpu_torch --print-run-id <run id> [--verify-pde]
         [--heavy-validate] [--certify] [--find-monopole] [--audit-kerr]
     python -m pde_engine_tpu_torch --watch-run <run id>
+    python -m pde_engine_tpu_torch --devices 2 [--shard-cache]
+    PDE_ENGINE_NUM_PROCESSES=2 PDE_ENGINE_PROCESS_ID=<rank> \
+        PDE_ENGINE_COORDINATOR=127.0.0.1:<port> \
+        python -m pde_engine_tpu_torch --multihost [--shard-registry]
 
 Runs a fresh discovery, resumes a run and extends it to ``--max-depth``
 (from its registry sidecar, or from the rows of its DB), reads a run back
-from its DB with the post-hoc audits, or watches a live run, on one
-explicit device (``--device cuda`` by default; ``cpu`` runs the plain
-torch kernels).  The multi-device flags of the JAX package
-(``--devices``, ``--multihost``, ``--shard-cache``, ``--shard-registry``)
-are not defined, so argparse refuses them.
+from its DB with the post-hoc audits, or watches a live run, on an
+explicit device type (``--device cuda`` by default; ``cpu`` runs the
+plain torch kernels).  ``--devices K`` shards each batch over the first
+K cards (K CPU shards with ``--device cpu``), with a replicated jet
+cache or, with ``--shard-cache``, one split by uid range;
+``--multihost`` runs one process per device on ``torch.distributed``
+(``parallel/distributed.py`` says how a process finds the others), and
+``--shard-registry`` splits the dedup map over the processes.
 """
 
 from __future__ import annotations
@@ -44,6 +51,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run DB path (default: the problem's outputs dir)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the run; cuda without a GPU is an error")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard each batch over the first K cards (K CPU "
+                        "shards with --device cpu); more cards than the "
+                        "host has are refused")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process per device on torch.distributed: "
+                        "PDE_ENGINE_NUM_PROCESSES, PDE_ENGINE_PROCESS_ID "
+                        "and PDE_ENGINE_COORDINATOR (host:port), or "
+                        "torchrun's WORLD_SIZE, RANK, MASTER_ADDR and "
+                        "MASTER_PORT; rank 0 writes the run DB")
+    p.add_argument("--shard-cache", action="store_true",
+                   help="with --devices: split the device jet cache by uid "
+                        "range over the mesh (device d holds rows "
+                        "[d*C/K, (d+1)*C/K)), so the parent window is K x "
+                        "--max-cache-rows")
+    p.add_argument("--shard-registry", action="store_true",
+                   help="with --multihost: each process keeps only its "
+                        "slice of the dedup map (key mod processes), and "
+                        "only the writer keeps display strings and "
+                        "persists verdicts")
     p.add_argument("--no-special-ops", action="store_true",
                    help="Disable sqrt_shift/exp_mul/log_mul special ops")
     p.add_argument("--no-prune", action="store_true")
@@ -188,7 +215,13 @@ def main(argv=None) -> int:
         audit_rejects=not args.no_audit_rejects,
         max_cache_rows=args.max_cache_rows,
         spill_strings=args.spill_strings,
+        shard_cache=args.shard_cache,
+        shard_registry=args.shard_registry,
     )
+    if args.shard_cache and not (args.devices or args.multihost):
+        print("error: --shard-cache requires a mesh (--devices N)",
+              flush=True)
+        return 2
     if args.validators:
         print(f"note: --validators {args.validators} ignored: validation "
               "runs on the device")
@@ -212,8 +245,20 @@ def main(argv=None) -> int:
     if args.print_run_id:
         return _audit(args, problem, config)
 
+    from .parallel import distributed
+    mesh = None
+    if args.multihost:
+        distributed.initialize(device=args.device)
+        mesh = distributed.global_candidate_mesh(args.device)
+    elif args.devices:
+        from .parallel.mesh import candidate_mesh
+        try:
+            mesh = candidate_mesh(args.devices, args.device)
+        except ValueError as e:
+            print(f"error: {e}", flush=True)
+            return 2
     kw = dict(config=config, db_path=args.db_path, device=args.device,
-              report_families=not args.no_report_families)
+              report_families=not args.no_report_families, mesh=mesh)
     if args.resume_run:
         run = DiscoveryRun.resume(problem, args.resume_run, **kw)
         go = run.continue_run
@@ -227,6 +272,9 @@ def main(argv=None) -> int:
             _profiled(args, lambda: go(max_depth=args.max_depth))
     finally:
         run.close()
+    # only after a run that ended well: a failed rank leaves, and the
+    # others fail at their next collective instead of waiting here
+    distributed.shutdown()
     return 0
 
 

@@ -302,8 +302,18 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _one_device(kernel: str, *tensors) -> None:
+    """Refuse tensors on more than one device: the library takes raw
+    pointers and launches on the cache's device and its current stream,
+    so a tensor elsewhere would be read through a wrong address."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) > 1:
+        raise ValueError(f"{kernel}: tensors on more than one device: "
+                         f"{sorted(str(d) for d in devs)}")
 
 
 def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
@@ -312,6 +322,8 @@ def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
     op ``row_ops[i]`` (in ``[0, 18)``) on the cache rows ``ab_idx[i]``.
     Any ``n``: the caller packs each op's candidates back to back and
     passes exactly its candidates."""
+    _one_device("segmented", cache_s, cache_f, ab_idx, row_ops, spoints,
+                fpoints)
     if cache_s.device.type == "cpu":
         return _nan_checked("segmented", segmented_ref(
             spec, cache_s, cache_f, ab_idx, row_ops, spoints, fpoints),
@@ -322,10 +334,12 @@ def segmented(spec: ScreenSpec, cache_s, cache_f, ab_idx, row_ops, spoints,
     _check(row_ops, "row_ops", torch.int32, (n,))
     packed, jets, fj = _outputs(spec, n, cache_s.device)
     if n:
-        rc = _library(spec).pde_screen_segmented(
-            cache_s.data_ptr(), cache_f.data_ptr(), cap, ab_idx.data_ptr(),
-            row_ops.data_ptr(), spoints.data_ptr(), spec.screen_rtol, n,
-            jets.data_ptr(), fj.data_ptr(), packed.data_ptr(), _stream())
+        with torch.cuda.device(cache_s.device):
+            rc = _library(spec).pde_screen_segmented(
+                cache_s.data_ptr(), cache_f.data_ptr(), cap,
+                ab_idx.data_ptr(), row_ops.data_ptr(), spoints.data_ptr(),
+                spec.screen_rtol, n, jets.data_ptr(), fj.data_ptr(),
+                packed.data_ptr(), _stream(cache_s.device))
         _raise_on(rc, "segmented")
         LAUNCHES["segmented"] += 1
     return _nan_checked("segmented", (packed, jets, fj),
@@ -337,6 +351,7 @@ def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
     """One op over a constant row and a contiguous run
     (make_pallas_structured_kernel); ``n_batch`` a multiple of the
     512-row tile, in blocks sized to the launch."""
+    _one_device("structured", cache_s, cache_f, spoints, fpoints)
     if cache_s.device.type == "cpu":
         return _nan_checked("structured", structured_ref(
             spec, cache_s, cache_f, const_uid, big0, op_id, spoints,
@@ -349,12 +364,13 @@ def structured(spec: ScreenSpec, cache_s, cache_f, const_uid: int, big0: int,
                          f"constant row {const_uid} outside {cap} rows")
     packed, jets, fj = _outputs(spec, n_batch, cache_s.device)
     if n_batch:
-        rc = _library(spec).pde_screen_structured(
-            cache_s.data_ptr(), cache_f.data_ptr(), cap, int(const_uid),
-            int(big0), int(op_id), int(big == "b"), spoints.data_ptr(),
-            spec.screen_rtol, n_batch,
-            block_cands(spec, "structured", n_batch), jets.data_ptr(),
-            fj.data_ptr(), packed.data_ptr(), _stream())
+        with torch.cuda.device(cache_s.device):
+            rc = _library(spec).pde_screen_structured(
+                cache_s.data_ptr(), cache_f.data_ptr(), cap, int(const_uid),
+                int(big0), int(op_id), int(big == "b"), spoints.data_ptr(),
+                spec.screen_rtol, n_batch,
+                block_cands(spec, "structured", n_batch), jets.data_ptr(),
+                fj.data_ptr(), packed.data_ptr(), _stream(cache_s.device))
         _raise_on(rc, "structured")
         LAUNCHES["structured"] += 1
     return _nan_checked("structured", (packed, jets, fj), lambda i: op_id)
@@ -365,6 +381,8 @@ def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
     """Per-tile (op, kind, start, const) runs (make_pallas_tiled_kernel).
     The caller keeps every ``start + 512`` within the cache allocation;
     the kernel clamps rows as a memory guard."""
+    _one_device("tiled", cache_s, cache_f, starts, const_uid, opkind,
+                spoints, fpoints)
     if cache_s.device.type == "cpu":
         return _nan_checked("tiled", tiled_ref(
             spec, cache_s, cache_f, starts, const_uid, opkind, spoints,
@@ -378,11 +396,12 @@ def tiled(spec: ScreenSpec, cache_s, cache_f, starts, const_uid, opkind,
     _check(const_uid, "const_uid", torch.int32, (nt,))
     _check(opkind, "opkind", torch.int32, (nt,))
     packed, jets, fj = _outputs(spec, n_batch, cache_s.device)
-    rc = _library(spec).pde_screen_tiled(
-        cache_s.data_ptr(), cache_f.data_ptr(), cap, starts.data_ptr(),
-        const_uid.data_ptr(), opkind.data_ptr(), spoints.data_ptr(),
-        spec.screen_rtol, n_batch, jets.data_ptr(), fj.data_ptr(),
-        packed.data_ptr(), _stream())
+    with torch.cuda.device(cache_s.device):
+        rc = _library(spec).pde_screen_tiled(
+            cache_s.data_ptr(), cache_f.data_ptr(), cap, starts.data_ptr(),
+            const_uid.data_ptr(), opkind.data_ptr(), spoints.data_ptr(),
+            spec.screen_rtol, n_batch, jets.data_ptr(), fj.data_ptr(),
+            packed.data_ptr(), _stream(cache_s.device))
     _raise_on(rc, "tiled")
     LAUNCHES["tiled"] += 1
     return _nan_checked("tiled", (packed, jets, fj),
@@ -393,7 +412,10 @@ def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
               spoints, fpoints):
     """One op over per-row operands (make_pallas_universal_kernel /
     make_pallas_op_kernel).  Any ``n``, in blocks sized to the launch;
-    out-of-range rows clamp, as the JAX gather does."""
+    out-of-range rows clamp, as the JAX gather does.  Every tensor lies
+    on one device; on a card the launch goes to that card's current
+    stream."""
+    _one_device("universal", cache_s, cache_f, ab_idx, spoints, fpoints)
     if cache_s.device.type == "cpu":
         return _nan_checked("universal", universal_ref(
             spec, cache_s, cache_f, ab_idx, op_id, spoints, fpoints),
@@ -405,11 +427,13 @@ def universal(spec: ScreenSpec, cache_s, cache_f, ab_idx, op_id: int,
     _check(ab_idx, "ab_idx", torch.int32, (n, 2))
     packed, jets, fj = _outputs(spec, n, cache_s.device)
     if n:
-        rc = _library(spec).pde_screen_universal(
-            cache_s.data_ptr(), cache_f.data_ptr(), cap, ab_idx.data_ptr(),
-            int(op_id), spoints.data_ptr(), spec.screen_rtol, n,
-            block_cands(spec, "universal", n), jets.data_ptr(), fj.data_ptr(),
-            packed.data_ptr(), _stream())
+        with torch.cuda.device(cache_s.device):
+            rc = _library(spec).pde_screen_universal(
+                cache_s.data_ptr(), cache_f.data_ptr(), cap,
+                ab_idx.data_ptr(), int(op_id), spoints.data_ptr(),
+                spec.screen_rtol, n, block_cands(spec, "universal", n),
+                jets.data_ptr(), fj.data_ptr(), packed.data_ptr(),
+                _stream(cache_s.device))
         _raise_on(rc, "universal")
         LAUNCHES["universal"] += 1
     return _nan_checked("universal", (packed, jets, fj), lambda i: op_id)

@@ -34,24 +34,67 @@ class JetCache:
     Row i holds the jets of the unique with uid == i.  Grows in
     ``grow_quantum`` steps, never past ``row_limit`` (rounded up to the
     quantum) when one is set.
+
+    On one device the rows are two tensors, ``screen`` and ``fp``.  With
+    a ``mesh`` (:class:`~.mesh.CandidateMesh`) they are held in one part
+    per mesh device: a whole replica on each (the JAX package's replicated
+    sharding), or with ``sharded`` the uid slice ``[d*C/K, (d+1)*C/K)``
+    on device ``d`` (its uid-range sharding, ``SearchConfig.shard_cache``),
+    the capacity ``C`` then a multiple of ``K``.  Every write reaches every
+    part that holds the rows written, so a replica never misses an append
+    and rows that straddle a slice boundary land in both slices.
     """
 
     def __init__(self, n_screen: int, t_screen: int, n_fp: int,
                  device: torch.device, initial_capacity: int = 1 << 14,
                  grow_quantum: Optional[int] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, mesh=None, sharded: bool = False):
+        if sharded and mesh is None:
+            raise ValueError("a uid-range-sharded cache needs a mesh")
         self.sdim = n_screen * t_screen
         self.fdim = n_fp * 3
         self.n = 0
-        self.device = torch.device(device)
         self.dtype = dtype
-        self.capacity = int(initial_capacity)
+        self.sharded = bool(sharded)
+        self.devices = (tuple(mesh.devices) if mesh is not None
+                        else (torch.device(device),))
+        self.device = self.devices[0]
+        rq = len(self.devices) if self.sharded else 1
+        self._row_quantum = rq
+        self.capacity = -(-int(initial_capacity) // rq) * rq
         self.row_limit: Optional[int] = None
-        self.grow_quantum = int(grow_quantum or 4 * initial_capacity)
-        self.screen = torch.zeros((self.capacity, self.sdim), dtype=dtype,
-                                  device=self.device)
-        self.fp = torch.zeros((self.capacity, self.fdim), dtype=dtype,
-                              device=self.device)
+        self.grow_quantum = -(-int(grow_quantum or 4 * initial_capacity)
+                              // rq) * rq
+        self._screen, self._fp = self._alloc(self.capacity)
+
+    def _alloc(self, capacity: int):
+        rows = capacity // self._row_quantum
+        return ([torch.zeros((rows, self.sdim), dtype=self.dtype, device=d)
+                 for d in self.devices],
+                [torch.zeros((rows, self.fdim), dtype=self.dtype, device=d)
+                 for d in self.devices])
+
+    def _whole(self, parts):
+        if self.sharded:
+            raise AttributeError("a uid-range-sharded cache has no single "
+                                 "tensor of rows: use parts()")
+        return parts[0]
+
+    @property
+    def screen(self) -> torch.Tensor:
+        """Screen-jet rows (on one device, or the home replica)."""
+        return self._whole(self._screen)
+
+    @property
+    def fp(self) -> torch.Tensor:
+        return self._whole(self._fp)
+
+    def parts(self):
+        """``[(screen, fp, first uid)]``, one per mesh device: a whole
+        replica at uid 0, or a uid slice."""
+        step = self.capacity // self._row_quantum if self.sharded else 0
+        return [(s, f, d * step)
+                for d, (s, f) in enumerate(zip(self._screen, self._fp))]
 
     @classmethod
     def from_jax_snapshot(cls, snapshot, device: torch.device,
@@ -77,11 +120,67 @@ class JetCache:
         new_cap = max(self.capacity * 2, cap_need)
         if self.row_limit is not None:
             new_cap = max(cap_need, min(new_cap, -(-self.row_limit // q) * q))
-        pad = new_cap - self.capacity
-        self.screen = torch.cat([self.screen, self.screen.new_zeros(
-            (pad, self.sdim))])
-        self.fp = torch.cat([self.fp, self.fp.new_zeros((pad, self.fdim))])
+        new_cap = -(-new_cap // self._row_quantum) * self._row_quantum
+        if not self.sharded:
+            pad = new_cap - self.capacity
+            self._screen = [torch.cat([s, s.new_zeros((pad, self.sdim))])
+                            for s in self._screen]
+            self._fp = [torch.cat([f, f.new_zeros((pad, self.fdim))])
+                        for f in self._fp]
+            self.capacity = new_cap
+            return
+        # a new capacity moves every slice boundary: copy the live rows
+        # into the new slices (rare: growth moves in big quanta)
+        live = self.n
+        old = self.parts()
+        self._screen, self._fp = self._alloc(new_cap)
         self.capacity = new_cap
+        step = new_cap // self._row_quantum
+        for d, (s, f, lo) in enumerate(self.parts()):
+            hi = min(lo + step, live)
+            if lo < hi:
+                rs, rf = self._read_parts(old, lo, hi, s.device)
+                s[:hi - lo] = rs
+                f[:hi - lo] = rf
+
+    @staticmethod
+    def _read_parts(parts, lo: int, hi: int, device):
+        """Rows ``[lo, hi)`` gathered from ``parts`` onto ``device``."""
+        ps, pf = [], []
+        for s, f, plo in parts:
+            a, b = max(lo, plo), min(hi, plo + s.shape[0])
+            if a < b:
+                ps.append(s[a - plo:b - plo].to(device))
+                pf.append(f[a - plo:b - plo].to(device))
+                if a == lo and b == hi:
+                    break       # one part (a whole replica) holds them all
+        return torch.cat(ps), torch.cat(pf)
+
+    def _write(self, lo: int, rows_s: torch.Tensor, rows_f: torch.Tensor):
+        """Rows ``rows_*`` at uids ``[lo, lo + k)`` of every part holding
+        them."""
+        hi = lo + int(rows_s.shape[0])
+        for s, f, plo in self.parts():
+            a, b = max(lo, plo), min(hi, plo + s.shape[0])
+            if a < b:
+                s[a - plo:b - plo] = rows_s[a - lo:b - lo].to(
+                    s.device, self.dtype)
+                f[a - plo:b - plo] = rows_f[a - lo:b - lo].to(
+                    f.device, self.dtype)
+
+    def scatter(self, uids, out_s: torch.Tensor, out_f: torch.Tensor):
+        """Row ``i`` of ``out_*`` at uid ``uids[i]`` (any order), in every
+        part holding that uid."""
+        uids = torch.as_tensor(np.asarray(uids, np.int64))
+        k = int(uids.shape[0])
+        for s, f, plo in self.parts():
+            mine = (uids >= plo) & (uids < plo + s.shape[0])
+            sel = torch.nonzero(mine).flatten()
+            if sel.numel() == 0:
+                continue
+            at = (uids[sel] - plo).to(s.device)
+            s[at] = out_s[:k][sel.to(out_s.device)].to(s.device, self.dtype)
+            f[at] = out_f[:k][sel.to(out_f.device)].to(f.device, self.dtype)
 
     def append(self, screen_rows: torch.Tensor, fp_rows: torch.Tensor,
                real_rows: Optional[int] = None) -> None:
@@ -93,8 +192,7 @@ class JetCache:
             return
         if self.n + k > self.capacity:
             self._grow(self.n + k)
-        self.screen[self.n:self.n + k] = screen_rows.to(self.dtype)
-        self.fp[self.n:self.n + k] = fp_rows.to(self.dtype)
+        self._write(self.n, screen_rows, fp_rows)
         self.n += adv
 
     def append_gathered(self, out_s: torch.Tensor, out_f: torch.Tensor,
@@ -107,8 +205,7 @@ class JetCache:
             return
         if self.n + k > self.capacity:
             self._grow(self.n + k)
-        self.screen[self.n:self.n + k] = out_s[idx]
-        self.fp[self.n:self.n + k] = out_f[idx]
+        self._write(self.n, out_s[idx], out_f[idx])
         self.n += k
 
     def load_rows(self, screen_np: np.ndarray, fp_np: np.ndarray) -> None:
@@ -118,22 +215,23 @@ class JetCache:
             return
         if k > self.capacity:
             self._grow(k)
-        self.screen[:k] = torch.tensor(np.asarray(screen_np, np.float32),
-                                       device=self.device)
-        self.fp[:k] = torch.tensor(np.asarray(fp_np, np.float32),
-                                   device=self.device)
+        self._write(0, torch.tensor(np.asarray(screen_np, np.float32)),
+                    torch.tensor(np.asarray(fp_np, np.float32)))
         self.n = k
 
     def snapshot(self) -> dict:
         """Host copy of the live rows, in the JAX package's format."""
-        n = self.n
-        return {"screen": self.screen[:n].cpu().numpy(),
-                "fp": self.fp[:n].cpu().numpy(), "n": n}
+        out = self.snapshot_range(0, self.n)
+        out["n"] = self.n
+        return out
 
     def snapshot_range(self, lo: int, hi: int) -> dict:
         hi = min(hi, self.n)
-        return {"screen": self.screen[lo:hi].cpu().numpy(),
-                "fp": self.fp[lo:hi].cpu().numpy()}
+        if hi <= lo:
+            return {"screen": np.zeros((0, self.sdim), np.float32),
+                    "fp": np.zeros((0, self.fdim), np.float32)}
+        s, f = self._read_parts(self.parts(), lo, hi, torch.device("cpu"))
+        return {"screen": s.numpy(), "fp": f.numpy()}
 
 
 def universal_ref(order: int, residual_key: str, screen_rtol: float,
@@ -172,3 +270,121 @@ def universal_ref(order: int, residual_key: str, screen_rtol: float,
                             residual_fn, screen_rtol)
     return (pack_screen_result_compact(sr), out_s.reshape(n, -1),
             out_f.reshape(n, -1))
+
+
+# ---------------------------------------------------------------------------
+# The mesh calls: one hand ``universal`` launch per shard
+# ---------------------------------------------------------------------------
+
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return t if t.device == device else t.to(device)
+
+
+def _spec(order, residual_key, screen_rtol, n_screen, n_fp):
+    from .cuda_engine import ScreenSpec
+    return ScreenSpec(order, residual_key, float(screen_rtol), n_screen,
+                      n_fp)
+
+
+def _gathered(home: torch.device, spec, outs):
+    """The shards' ``(packed, jets, fj)`` concatenated in shard order on
+    ``home``, and the survivor count (bit 0 of packed column 2) summed
+    over the shards: the JAX kernels' ``psum``."""
+    if not outs:
+        return (torch.empty((0, 3), dtype=torch.int32, device=home),
+                torch.empty((0, spec.sdim), device=home),
+                torch.empty((0, spec.fdim), device=home),
+                torch.zeros((), dtype=torch.int64, device=home))
+    n_pass = sum(_to((p[:, 2] & 1).sum(), home) for p, _, _ in outs)
+    return (*(torch.cat([_to(o[i], home) for o in outs]) for i in range(3)),
+            n_pass)
+
+
+def make_op_kernel_sharded(mesh, op_name: str, order: int,
+                           residual_key: str, screen_rtol: float,
+                           n_screen: int, n_fp: int):
+    """The replicated-cache mesh call (JAX ``make_op_kernel_sharded``):
+    ``call(cache, ab_idx, spoints, fpoints) -> (packed, jets, fj,
+    survivors)``.  The batch ``ab_idx`` (int32 ``[n, 2]``, any device) is
+    split into the mesh's contiguous shards; shard ``k`` is one
+    ``cuda_engine.universal`` launch on ``mesh.devices[k]`` over that
+    device's replica of ``cache``.  The shards launch exactly their rows
+    (an empty shard launches nothing) and their outputs come back in
+    shard order on the mesh's home device."""
+    from .cuda_engine import universal
+    spec = _spec(order, residual_key, screen_rtol, n_screen, n_fp)
+    op_id = OP_INDEX[op_name]
+
+    def call(cache, ab_idx, spoints, fpoints):
+        if cache.sharded:
+            raise ValueError("the replicated mesh call needs a replicated "
+                             "cache")
+        outs = []
+        for (lo, hi), (s, f, _) in zip(mesh.split(int(ab_idx.shape[0])),
+                                       cache.parts()):
+            if lo < hi:
+                dev = s.device
+                outs.append(universal(spec, s, f, _to(ab_idx[lo:hi], dev),
+                                      op_id, _to(spoints, dev),
+                                      _to(fpoints, dev)))
+        return _gathered(mesh.home, spec, outs)
+
+    return call
+
+
+def pick_rows(parts, uids: torch.Tensor, device: torch.device):
+    """The cache rows of ``uids`` rebuilt on ``device`` from a
+    uid-range-sharded cache's ``parts``: each slice picks the rows it
+    owns (clamped gather, masked as the JAX ``pick``) and they are
+    combined by selection, so that every row equals the cache's bit for
+    bit, signed zeros included (the JAX ``psum`` turns a -0.0 into
+    +0.0).  A uid no slice owns gives a zero row."""
+    sdim, fdim = parts[0][0].shape[1], parts[0][1].shape[1]
+    n = int(uids.shape[0])
+    out_s = torch.zeros((n, sdim), dtype=parts[0][0].dtype, device=device)
+    out_f = torch.zeros((n, fdim), dtype=parts[0][1].dtype, device=device)
+    for s, f, lo in parts:
+        rows = int(s.shape[0])
+        rel = _to(uids, s.device).to(torch.int64) - lo
+        ok = _to((rel >= 0) & (rel < rows), device)[:, None]
+        rel = rel.clamp(0, rows - 1)
+        out_s = torch.where(ok, _to(s[rel], device), out_s)
+        out_f = torch.where(ok, _to(f[rel], device), out_f)
+    return out_s, out_f
+
+
+def make_op_kernel_uidrange(mesh, op_name: str, order: int,
+                            residual_key: str, screen_rtol: float,
+                            n_screen: int, n_fp: int):
+    """The uid-range-sharded mesh call (JAX
+    ``make_op_kernel_uidrange``): the cache is split by uid range over
+    the mesh (``JetCache(sharded=True)``).  For shard ``k`` of the batch
+    the operand rows ``a`` then ``b`` are rebuilt on ``mesh.devices[k]``
+    (:func:`pick_rows`), and ``universal`` runs on them with the
+    identity indices ``(i, i + m)``, as the JAX ``_apply_raw_on_rows``
+    does.  The JAX call needs the batch and the cache to be multiples of
+    the mesh size; here shards are any size, and the cache's capacity is
+    a multiple of it by construction."""
+    from .cuda_engine import universal
+    spec = _spec(order, residual_key, screen_rtol, n_screen, n_fp)
+    op_id = OP_INDEX[op_name]
+
+    def call(cache, ab_idx, spoints, fpoints):
+        if not cache.sharded:
+            raise ValueError("the uid-range mesh call needs a "
+                             "uid-range-sharded cache")
+        parts = cache.parts()
+        outs = []
+        for k, (lo, hi) in enumerate(mesh.split(int(ab_idx.shape[0]))):
+            if lo == hi:
+                continue
+            dev, m = mesh.devices[k], hi - lo
+            uids = ab_idx[lo:hi].t().reshape(-1)      # a rows, then b rows
+            rows_s, rows_f = pick_rows(parts, uids, dev)
+            ident = torch.arange(m, dtype=torch.int32, device=dev)
+            ab = torch.stack([ident, ident + m], dim=1)
+            outs.append(universal(spec, rows_s, rows_f, ab, op_id,
+                                  _to(spoints, dev), _to(fpoints, dev)))
+        return _gathered(mesh.home, spec, outs)
+
+    return call

@@ -211,6 +211,38 @@ def pack_screen_result_compact(sr: ScreenResult) -> torch.Tensor:
                         u32_to_i32(col2)], dim=1)
 
 
+N_PACK_HEAD = 9   # verdict columns ahead of the fingerprint values
+
+
+def pack_screen_result(sr: ScreenResult) -> torch.Tensor:
+    """The full packing as one float32 array ``[N, 9 + F*3]``: screen_ok,
+    rel_max, nonfinite, is_const, fp_a and fp_b each as two exact 16-bit
+    halves, fp_finite, then the snapped fingerprint values (JAX
+    ``pack_screen_result``)."""
+    f = torch.float32
+    fa, fb = sr.fp_a, sr.fp_b
+    cols = [sr.screen_ok.to(f), sr.rel_max.to(f), sr.nonfinite.to(f),
+            sr.is_const.to(f), (fa >> 16).to(f), (fa & 0xFFFF).to(f),
+            (fb >> 16).to(f), (fb & 0xFFFF).to(f), sr.fp_finite.to(f)]
+    return torch.cat([torch.stack(cols, dim=1), sr.fp_vals.to(f)], dim=1)
+
+
+def unpack_screen_result(packed: np.ndarray) -> ScreenResult:
+    """Host-side inverse of :func:`pack_screen_result` (numpy arrays)."""
+    packed = np.ascontiguousarray(packed, dtype=np.float32)
+
+    def u32(hi, lo):
+        return ((hi.astype(np.uint32) << np.uint32(16))
+                | lo.astype(np.uint32))
+
+    return ScreenResult(
+        screen_ok=packed[:, 0] != 0, rel_max=packed[:, 1],
+        nonfinite=packed[:, 2] != 0, is_const=packed[:, 3] != 0,
+        fp_a=u32(packed[:, 4], packed[:, 5]),
+        fp_b=u32(packed[:, 6], packed[:, 7]),
+        fp_finite=packed[:, 8] != 0, fp_vals=packed[:, N_PACK_HEAD:])
+
+
 class CompactUnpack(NamedTuple):
     sr: ScreenResult
     n_passers: int          # passer count
@@ -306,6 +338,29 @@ def make_search_kernel_raw(order: int, max_nodes: int, residual_key: str,
         fj = snap_fp_jets(eval_1(tapes, lengths, consts, fpoints))
         return verdicts_from_jets(jets, fj, spoints, residual_fn,
                                   screen_rtol)
+
+    return kernel
+
+
+@functools.lru_cache(maxsize=None)
+def make_tape_jets_kernel(order: int, max_nodes: int, residual_key: str,
+                          screen_rtol: float, n_screen: int, n_fp: int):
+    """Like :func:`make_search_kernel`, but returns the full packing
+    (:func:`pack_screen_result`) with the flattened screen jets ``[N,
+    P*T]`` and snapped fingerprint jets ``[N, F*3]``, the rows that seed a
+    ``JetCache`` (JAX ``make_tape_jets_kernel``).  Runs on the device of
+    its inputs."""
+    residual_fn = _RESIDUALS[residual_key]
+    eval_r = batched_evaluator(order, max_nodes)
+    eval_1 = batched_evaluator(1, max_nodes)
+
+    def kernel(tapes, lengths, consts, spoints, fpoints):
+        jets = eval_r(tapes, lengths, consts, spoints)
+        # snapped, so that the rows sit on the incremental kernels' grid
+        fj = snap_fp_jets(eval_1(tapes, lengths, consts, fpoints))
+        sr = verdicts_from_jets(jets, fj, spoints, residual_fn, screen_rtol)
+        return (pack_screen_result(sr), jets.reshape(jets.shape[0], -1),
+                fj.reshape(fj.shape[0], -1))
 
     return kernel
 

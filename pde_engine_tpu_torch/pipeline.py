@@ -12,8 +12,18 @@ evaluated from its whole tape by the float64 oracle, as in the JAX
 package's tape engine.  Resume seeds the jet cache from a snapshot and
 replays the missing composed rows through the same kernels.  The host
 side (enumerator, ``DedupMap``, reject rows, the gray float64 overlap) is
-the port's copy of the JAX package's; the mesh, multi-host and
-registry-sharding paths are not ported.
+the port's copy of the JAX package's.
+
+With a ``mesh`` (``parallel/mesh.CandidateMesh``: ``--devices K``, or
+one device per process under ``--multihost``) every depth >= 2 takes the
+per-op path, as in the JAX package: each op batch is split into the
+mesh's shards, one ``universal`` launch per shard over a replicated
+cache or, with ``shard_cache``, over operand rows rebuilt from a
+uid-range-sharded cache (``parallel/incremental.py``); across processes
+the shards' verdicts and jets are all-gathered so that every process
+ingests the same rows (``parallel/distributed.py``), and with
+``shard_registry`` each process keeps only its slice of the dedup map
+(``_dedup_sharded``) and only the writer persists verdicts.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from .ops.interpreter import eval_jets_np, eval_jets_np_many
 from .ops.jets import n_coeffs
 from .parallel import cuda_engine
 from .parallel.incremental import OP_INDEX, OP_ORDER, JetCache
+from .parallel.mesh import shard_ranges
 from .parallel.search import (ScreenResult, informative_points,
                               snap_fp_jets_np, unpack_screen_result_compact,
                               verdicts_from_jets_np)
@@ -370,21 +381,59 @@ class _Passer:
 class DiscoveryEngine:
 
     def __init__(self, problem, config: Optional[SearchConfig] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        from .parallel.distributed import (is_writer, process_count,
+                                           registry_shard)
         from .utils.hostmem import tune_allocator
         from .utils.native import DedupMap
         tune_allocator()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.home.type != self.device.type:
+                raise ValueError(f"mesh {mesh} for a run on "
+                                 f"{self.device.type}")
+            self.device = mesh.home
         on_gpu = self.device.type == "cuda"
         self.problem = problem
         self.config = config or SearchConfig()
         if self.config.engine not in ("incremental", "tape"):
             raise ValueError(f"unknown engine {self.config.engine!r}: "
                              "'incremental' or 'tape'")
-        if self.config.shard_cache or self.config.shard_registry:
-            raise ValueError("the torch engine runs on one device only: "
-                             "shard_cache and shard_registry are not "
-                             "ported")
+        if self.config.engine == "tape" and (
+                mesh is not None or self.config.shard_cache
+                or self.config.shard_registry):
+            raise ValueError("the tape engine runs on one device: a mesh, "
+                             "shard_cache and shard_registry are the "
+                             "incremental engine's")
+        if mesh is not None and self.config.use_segmented:
+            raise ValueError("a mesh takes the per-op path: "
+                             "use_segmented is a one-device path")
+        # one process per device across processes (--multihost): the
+        # shards' verdicts and jets are all-gathered
+        self._multihost = mesh is not None and process_count() > 1
+        # registry sharding (SearchConfig.shard_registry): across
+        # processes each dedup map holds the keys it owns (key mod
+        # world), and only the writer persists verdicts
+        self._reg_rank, self._reg_world = 0, 1
+        self.persist_host = True
+        if self.config.shard_registry and mesh is not None:
+            self._reg_rank, self._reg_world = registry_shard()
+            if self._reg_world > 1:
+                self.persist_host = is_writer()
+        # uid-range cache sharding (SearchConfig.shard_cache): device d
+        # holds the rows [d*C/K, (d+1)*C/K), so the parent window scales
+        # with the mesh
+        self._cache_sharded = bool(self.config.shard_cache
+                                   and mesh is not None)
+        if self.config.shard_cache and mesh is None:
+            raise ValueError("shard_cache requires a mesh "
+                             "(--devices N / DiscoveryEngine(mesh=...))")
+        if self._cache_sharded and self._multihost:
+            raise ValueError("shard_cache + multihost is not supported; "
+                             "use --shard-registry for multi-process "
+                             "memory scaling")
+        self.mesh_survivors = None
         self.enumerator = Enumerator(
             problem,
             include_special_ops=self.config.include_special_ops,
@@ -438,14 +487,18 @@ class DiscoveryEngine:
                 len(problem.screen_points) * n_coeffs(problem.residual_order)
                 + len(problem.fingerprint_points) * 3)
             mcr = max(1 << 20, (20_000_000 * 552) // row_bytes)
-        self.cache_row_limit = mcr
+        # the budget is per device: a sharded cache holds one slice of it
+        # on each mesh device
+        self.cache_row_limit = mcr * (mesh.size if self._cache_sharded
+                                      else 1)
         self.cache = JetCache(
             n_screen=len(problem.screen_points),
             t_screen=n_coeffs(problem.residual_order),
             n_fp=len(problem.fingerprint_points),
             device=self.device,
             initial_capacity=(1 << 20) if on_gpu else (1 << 14),
-            grow_quantum=(1 << 20) if on_gpu else None)
+            grow_quantum=(1 << 20) if on_gpu else None,
+            mesh=mesh, sharded=self._cache_sharded)
         self.cache.row_limit = self.cache_row_limit
         self._known_fp: Dict[str, np.ndarray] = {}
         self._known_sympy = {}
@@ -454,6 +507,7 @@ class DiscoveryEngine:
         self.structured_dispatches = 0  # full-run gather-bypass batches
         self.tiled_dispatches = 0       # per-tile gather-bypass batches
         self.universal_dispatches = 0   # per-op batches
+        self.shard_launches = 0         # their non-empty shards on a mesh
         # per kernel: [rows launched, candidates among them, rows of the
         # 512-row tiles that hold a candidate]
         self.launch_rows: Dict[str, List[int]] = {
@@ -665,6 +719,42 @@ class DiscoveryEngine:
         idx = torch.as_tensor(kept, dtype=torch.int64, device=self.device)
         self.cache.append_gathered(out_s, out_f, idx)
 
+    def _dedup_sharded(self, keys: np.ndarray, base_uid: int) -> np.ndarray:
+        """Sharded-registry dedup (SearchConfig.shard_registry): this
+        process probes and stores only the keys it owns (key mod world),
+        the processes' new-key masks are OR-combined (ownership
+        partitions the batch positions, so the union is disjoint), and
+        every process derives the same global first-occurrence set, uids
+        consecutive in batch order as in the unsharded insert_batch.  The
+        owned new keys then get their global uids."""
+        from .parallel.distributed import or_reduce_mask
+        n = keys.size
+        world = np.uint64(self._reg_world)
+        rank = np.uint64(self._reg_rank)
+        mine = np.nonzero(keys % world == rank)[0]
+        local_new = self.fp_to_uid.insert_batch(keys[mine], base_uid=0)
+        my_new = mine[local_new]
+        mask = np.zeros(n, np.bool_)
+        mask[my_new] = True
+        new_idx = np.nonzero(or_reduce_mask(mask))[0].astype(np.int64)
+        if my_new.size:
+            pos = np.searchsorted(new_idx, my_new)
+            self.fp_to_uid.set_batch(keys[my_new],
+                                     base_uid + pos.astype(np.int64))
+        return new_idx
+
+    def keep_owned_keys(self):
+        """Drop from the dedup map the keys this process does not own (a
+        sharded-registry resume that rebuilt the whole map from the DB
+        rows)."""
+        from .utils.native import DedupMap
+        ks, vs = self.fp_to_uid.items_arrays()
+        own = (ks % np.uint64(self._reg_world)) == np.uint64(self._reg_rank)
+        owned = DedupMap(force_python=(self.config.use_native is False),
+                         cap_hint=max(int(own.sum()) * 2, 1 << 16))
+        owned.set_batch(ks[own], vs[own].astype(np.int64))
+        self.fp_to_uid = owned
+
     def _ingest_vec(self, op_name: str, a_u: np.ndarray,
                     b_u: Optional[np.ndarray], sr: ScreenResult,
                     depth: int, st: DepthStats, on_row=None,
@@ -690,25 +780,41 @@ class DiscoveryEngine:
 
         with _Section("dedup"):
             enum = self.enumerator
-            new_idx = self.fp_to_uid.insert_batch(
-                keys, base_uid=enum.count_uniques())
+            if self._reg_world > 1:
+                new_idx = self._dedup_sharded(keys, enum.count_uniques())
+            else:
+                new_idx = self.fp_to_uid.insert_batch(
+                    keys, base_uid=enum.count_uniques())
         if new_idx.size == 0:
             return
         k_new = int(new_idx.size)
 
+        persist = self.persist_host
         with _Section("register"):
             uid0, exprs = enum.add_uniques_bulk(
                 op_name, a_u[new_idx],
                 None if b_u is None else b_u[new_idx], depth,
-                retain_strings=retain_strings,
-                arena_strings=(self.config.audit_rejects or retain_strings))
-            if (exprs is None and self.native_sink is None
+                retain_strings=retain_strings and persist,
+                arena_strings=(persist and (self.config.audit_rejects
+                                            or retain_strings)))
+            if (persist and exprs is None and self.native_sink is None
                     and self.config.audit_rejects):
                 blob = enum.arena.blob(
                     np.arange(uid0, uid0 + k_new, dtype=np.int64))
                 exprs = [s.decode() for s in blob.split(b"\x00")[:-1]]
         newkeys = keys[new_idx]
         st.unique += k_new
+
+        if not persist:
+            # a non-writer of a sharded-registry run: verdicts, reject
+            # rows and gray rechecks are the writer's; uid assignment and
+            # the cache do not depend on them
+            self.n_rows += k_new
+            with _Section("cache_append"):
+                self._append_cache_section(out_s, out_f, k_new, new_idx,
+                                           append_cache, defer_append_to,
+                                           row_offset)
+            return
 
         with _Section("verdicts"):
             has_var = enum.f_has_var[uid0:uid0 + k_new]
@@ -1080,7 +1186,34 @@ class DiscoveryEngine:
     # ------------------------------------------------------------------
 
     def _use_segmented(self) -> bool:
-        return self.config.use_segmented is not False
+        return self.mesh is None and self.config.use_segmented is not False
+
+    def _op_call(self, op_name: str):
+        """The mesh call of ``op_name`` (JAX ``_op_kernel`` on a mesh):
+        across processes the all-gathering one, on a uid-range-sharded
+        cache the uid-range one, else the replicated one."""
+        from .parallel import distributed, incremental
+        kw = dict(order=self.problem.residual_order,
+                  residual_key=self.problem.get_residual_key(),
+                  screen_rtol=float(self.screen_rtol),
+                  n_screen=len(self.problem.screen_points),
+                  n_fp=len(self.problem.fingerprint_points))
+        if self._multihost:
+            return distributed.make_op_kernel_multihost(self.mesh, op_name,
+                                                        **kw)
+        if self._cache_sharded:
+            return incremental.make_op_kernel_uidrange(self.mesh, op_name,
+                                                       **kw)
+        return incremental.make_op_kernel_sharded(self.mesh, op_name, **kw)
+
+    def _local_rows(self, n: int) -> int:
+        """Rows of an ``n``-candidate batch that this process launches:
+        all of them, or its shard across processes."""
+        if not self._multihost:
+            return n
+        from .parallel.distributed import process_count, process_index
+        lo, hi = shard_ranges(n, process_count())[process_index()]
+        return hi - lo
 
     def _tally_launch(self, kind: str, rows: int, sizes) -> None:
         tally_launch(self.launch_rows[kind], rows, sizes)
@@ -1095,20 +1228,33 @@ class DiscoveryEngine:
         read row 0 and are not used).  The JAX package pads the launch to
         8,192 rows or ``batch_size`` to keep its jit traces to two shapes
         per op; the CUDA kernel has no trace cache and masks its own
-        ragged edge, so every result here has ``n`` rows."""
+        ragged edge, so every result here has ``n`` rows.  On a mesh the
+        batch goes through :meth:`_op_call`, one launch per non-empty
+        shard, and ``mesh_survivors`` holds its summed survivor count."""
         n = a_idx.size
         ab = np.zeros((n, 2), np.int32)
         ab[:, 0] = a_idx
         if b_idx is not None:
             ab[:, 1] = b_idx
         t0 = time.perf_counter()
-        packed, out_s, out_f = cuda_engine.universal(
-            self._spec, self.cache.screen, self.cache.fp, self._dev(ab),
-            OP_INDEX[op_name], self._spoints, self._fpoints)
+        if self.mesh is not None:
+            packed, out_s, out_f, self.mesh_survivors = self._op_call(
+                op_name)(self.cache, torch.from_numpy(ab), self._spoints,
+                         self._fpoints)
+        else:
+            packed, out_s, out_f = cuda_engine.universal(
+                self._spec, self.cache.screen, self.cache.fp, self._dev(ab),
+                OP_INDEX[op_name], self._spoints, self._fpoints)
         self.device_seconds += time.perf_counter() - t0
         self.candidates_screened += n
         self.universal_dispatches += 1
-        self._tally_launch("universal", n, [n])
+        rows = self._local_rows(n)
+        self._tally_launch("universal", rows, [rows])
+        if self._multihost:
+            self.shard_launches += int(rows > 0)
+        elif self.mesh is not None:
+            self.shard_launches += sum(hi > lo
+                                       for lo, hi in self.mesh.split(n))
         return packed, out_s, out_f
 
     def _run_depth_per_op(self, depth: int, max_depth: int,
@@ -1313,10 +1459,14 @@ class DiscoveryEngine:
             else:
                 if self.cache.n < self.enumerator.count_uniques():
                     trunc = self.enumerator.count_uniques() - self.cache.n
+                    fix = ("raise --max-cache-rows or add devices"
+                           if self._cache_sharded else
+                           "raise --max-cache-rows, or split the cache "
+                           "over a mesh with --devices K --shard-cache")
                     print(f"  [mem] parent window truncated: {trunc} of "
                           f"{self.enumerator.count_uniques()} uniques "
                           "exceed the cache budget and are not composed "
-                          "deeper (raise --max-cache-rows)", flush=True)
+                          f"deeper ({fix})", flush=True)
                 run_depth = (self._run_depth_segmented
                              if self._use_segmented()
                              else self._run_depth_per_op)
@@ -1381,19 +1531,18 @@ class DiscoveryEngine:
             if total > self.cache.capacity:
                 self.cache._grow(total)
             counters = (self.candidates_screened, self.segmented_dispatches,
-                        self.universal_dispatches,
+                        self.universal_dispatches, self.shard_launches,
                         {k: list(v) for k, v in self.launch_rows.items()})
             self._seed_leaf_rows(n0, total)
             self._replay_composed_rows(n0, total)
             # seeding is not screening work: the run's counters stay its own
             (self.candidates_screened, self.segmented_dispatches,
-             self.universal_dispatches, self.launch_rows) = counters
+             self.universal_dispatches, self.shard_launches,
+             self.launch_rows) = counters
         self.cache.n = max(self.cache.n, total)
 
     def _scatter_rows(self, uids: np.ndarray, out_s, out_f):
-        idx = self._dev(np.asarray(uids, np.int64))
-        self.cache.screen[idx] = out_s[:idx.shape[0]].to(self.cache.dtype)
-        self.cache.fp[idx] = out_f[:idx.shape[0]].to(self.cache.dtype)
+        self.cache.scatter(uids, out_s, out_f)
 
     def _seed_leaf_rows(self, lo: int, total: int):
         """Cache rows ``[lo, total)`` of the leaves (uniques without a

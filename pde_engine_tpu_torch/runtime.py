@@ -10,12 +10,21 @@ snapshot (``<db>.jets.d/shard_<lo>_<hi>.npz``) and the registry sidecar
 the JAX package's file formats.  :meth:`DiscoveryRun.resume` rebuilds a
 run from its registry sidecar, or, without one, from the rows of the run
 DB, and continues at the next depth.  The audits (``--print-run-id`` and
-its verbs) read a run back from its DB alone.  Not ported: the
-multi-host registry key shards.
+its verbs) read a run back from its DB alone.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) the run is the same; across
+processes (``--multihost``, ``parallel/distributed.py``) only rank 0
+writes the run DB, the reports, the jet snapshot and the registry
+sidecar, the others reading the writer's files through
+``ReadOnlyRunDB``; with ``shard_registry`` every rank also writes its
+slice of the dedup keys (``<db>.registry.keys.<rank>.npz``), which a
+resume merges, in as many processes or in one.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import re
 import shutil
@@ -40,11 +49,15 @@ class DiscoveryRun:
     def __init__(self, problem_name, config: Optional[SearchConfig] = None,
                  run_id: Optional[str] = None,
                  db_path: Optional[str] = None, device="cuda",
-                 verbose: bool = True, report_families: bool = True):
+                 verbose: bool = True, report_families: bool = True,
+                 mesh=None):
+        from .parallel.distributed import agree, is_writer
         self.problem = (problem_name if isinstance(problem_name, Problem)
                         else load_problem(problem_name))
         self.config = config or SearchConfig()
-        self.run_id = run_id or new_run_id()
+        # every process of a multi-process run takes rank 0's id
+        self.run_id = run_id or (new_run_id() if mesh is None
+                                 else agree(new_run_id()))
         if db_path:
             self.db_path = db_path
             self.out_dir = os.path.dirname(os.path.abspath(db_path))
@@ -56,13 +69,21 @@ class DiscoveryRun:
         if self.config.spill_strings == "auto":
             # resolved here, where the run DB's directory is known
             self.config.spill_strings = self.out_dir
+        self.mesh = mesh
         self.engine = DiscoveryEngine(self.problem, self.config,
-                                      device=device)
-        self.db = RunDB(self.db_path, self.run_id)
+                                      device=device, mesh=mesh)
+        # single-writer discipline: across processes only rank 0 owns the
+        # run DB, the reports and the sidecars; the others read through
+        self.is_writer = not self.engine._multihost or is_writer()
+        if self.is_writer:
+            self.db = RunDB(self.db_path, self.run_id)
+        else:
+            from .utils.db import ReadOnlyRunDB
+            self.db = ReadOnlyRunDB(self.db_path, self.run_id)
         # native reject sink: mass reject rows go straight into the run DB
         # through the C++ writer
         self._native_sink = None
-        if self.config.use_native is not False:
+        if self.is_writer and self.config.use_native is not False:
             from .utils.native import NativeRejectSink, load_core
             if load_core() is not None:
                 self._native_sink = NativeRejectSink(self.db_path,
@@ -95,7 +116,7 @@ class DiscoveryRun:
         t_start = time.time()
         self._log(f"Run {self.run_id}: {self.problem.name}, "
                   f"max_depth={max_depth}, device={self.engine.device}, "
-                  f"db={self.db_path}")
+                  f"db={self.db_path}" + self._mesh_note())
         self._validate_knowns()
 
         def on_row(row: Row):
@@ -157,6 +178,11 @@ class DiscoveryRun:
             if st.ingest_sections:
                 self._log("    ingest breakdown: " + " ".join(
                     f"{k} {v:.1f}" for k, v in st.ingest_sections.items()))
+            if self.engine._multihost:
+                from .parallel.distributed import EXCHANGE, backend
+                self._log(f"    exchange ({backend()}): {EXCHANGE['calls']} "
+                          f"all-gathers, {EXCHANGE['seconds']:.3f} s, "
+                          f"{EXCHANGE['bytes'] / 1e6:.1f} MB so far")
 
         try:
             self.engine.run(max_depth, on_row=on_row, on_depth=on_depth,
@@ -166,14 +192,19 @@ class DiscoveryRun:
             self.db.complete_run("aborted")
             raise
         self.db.flush()
-        valid = self.db.rows("is_valid=1")
+        # a non-writer's view of the shared DB races the writer's inserts:
+        # its engine's rows and stats are its record
+        valid = (self.db.rows("is_valid=1") if self.is_writer
+                 else [dataclasses.asdict(r)
+                       for r in self.engine.valid_rows])
         report = build_report(
             self.problem, stats=self.engine.stats,
             run_id=self.run_id, max_depth=max_depth,
             classify_novel=(len(self.engine.valid_rows)
                             <= self.config.novel_class_limit),
             by_depth_counts=(
-                self.db.depth_counts() if self.config.audit_rejects
+                self.db.depth_counts()
+                if self.config.audit_rejects and self.is_writer
                 else {s.depth: {"generated": s.unique, "valid": s.valid}
                       for s in self.engine.stats}),
             valid_rows=valid,
@@ -184,16 +215,61 @@ class DiscoveryRun:
         report["candidates_screened"] = self.engine.candidates_screened
         report["dispatches"] = self.engine.dispatch_counts()
         report["launched_rows"] = self.engine.launched_rows()
-        paths = write_report_files(report, self.out_dir)
+        if self.mesh is not None:
+            report["mesh"] = self._mesh_report()
+        paths = (write_report_files(report, self.out_dir)
+                 if self.is_writer else None)
         self.db.update_metadata(
             sum(s.candidates for s in self.engine.stats)
             or report["total_generated"],
             self.engine.n_rows, report["total_valid"])
         self.db.complete_run("completed")
         self._log(format_report_text(report))
-        self._log(f"Reports: {paths['json']}  {paths['txt']}")
+        if self.engine._multihost:
+            # each rank's own record: it writes no report
+            from .parallel import cuda_engine
+            m = self._mesh_report()
+            self._log(f"process {m['rank']} of {m['processes']}: "
+                      f"{sum(s.unique for s in self.engine.stats)} uniques, "
+                      f"dedup map {m['dedup_map_keys']} keys, "
+                      f"{m['shard_launches']} shard launches, kernel "
+                      f"launches {json.dumps(cuda_engine.LAUNCHES)}")
+        if paths is not None:
+            self._log(f"Reports: {paths['json']}  {paths['txt']}")
         report["report_paths"] = paths
         return report
+
+    def _mesh_note(self) -> str:
+        if self.mesh is None:
+            return ""
+        eng = self.engine
+        note = (f", mesh {[str(d) for d in self.mesh.devices]} "
+                f"({'uid-range-sharded' if eng._cache_sharded else 'replicated'}"
+                " cache)")
+        if eng._multihost:
+            from .parallel.distributed import (backend, process_count,
+                                               process_index)
+            note += (f", process {process_index()} of {process_count()} "
+                     f"({backend()}"
+                     + (", sharded registry" if eng._reg_world > 1 else "")
+                     + (", writer" if self.is_writer else "") + ")")
+        return note
+
+    def _mesh_report(self) -> Dict:
+        """What the report says of the mesh and the process group."""
+        from .parallel.distributed import (EXCHANGE, backend, process_count,
+                                           process_index)
+        eng = self.engine
+        out = {"devices": [str(d) for d in self.mesh.devices],
+               "shard_cache": eng._cache_sharded,
+               "processes": process_count(), "rank": process_index(),
+               "backend": backend(), "writer": self.is_writer,
+               "registry_shards": eng._reg_world,
+               "dedup_map_keys": len(eng.fp_to_uid),
+               "shard_launches": eng.shard_launches}
+        if eng._multihost:
+            out["exchange"] = dict(EXCHANGE)
+        return out
 
     def _family_pass(self, valid_rows):
         """Array-level family tagging of the valid rows (utils/families):
@@ -282,8 +358,8 @@ class DiscoveryRun:
         shard beside the run DB.  Resume loads them bit for bit, so the
         resumed cache equals the one the run had (float64 re-derivation
         would shift fingerprint keys).  Rows are append-only, so a depth
-        costs its delta."""
-        if not self.config.snapshot_jets:
+        costs its delta.  Only the writer writes it."""
+        if not self.config.snapshot_jets or not self.is_writer:
             return
         cache = self.engine.cache
         shards = self._shard_files()
@@ -314,14 +390,25 @@ class DiscoveryRun:
         """Remove the on-disk jet snapshot.  Called when a resume could
         not use it: the next barrier then rewrites the snapshot from row 0
         of the live cache instead of appending to a base this run did not
-        load."""
-        shutil.rmtree(self._snapshot_dir, ignore_errors=True)
+        load.  Only the writer removes it."""
+        if self.is_writer:
+            shutil.rmtree(self._snapshot_dir, ignore_errors=True)
 
     def _fresh_cleanup(self):
         """A fresh run removes another run's resume state at the same
         db_path (jet shards, registry parts and manifest, key shards), so
-        that none of it becomes the delta base of this run's files."""
+        that none of it becomes the delta base of this run's files.  The
+        writer removes the shared files; every rank of a sharded-registry
+        run its own key shard."""
         import glob
+        eng = self.engine
+        if eng._reg_world > 1:
+            try:
+                os.remove(self._keys_shard_path(eng._reg_rank))
+            except OSError:
+                pass
+        if not self.is_writer:
+            return
         self._invalidate_jet_snapshot()
         shutil.rmtree(self._registry_dir, ignore_errors=True)
         for p in [self._registry_path] + glob.glob(
@@ -383,7 +470,14 @@ class DiscoveryRun:
         n = enum.count_uniques()
         if n == 0:
             return
-        if len(eng.fp_to_uid) != n:
+        sharded = eng._reg_world > 1
+        if sharded:
+            # every rank writes the key slice it owns; the manifest's
+            # keys_sharded tells a resume to merge the slices
+            self._save_keys_shard()
+        if not self.is_writer:
+            return
+        if not sharded and len(eng.fp_to_uid) != n:
             self._log(f"  [registry sidecar skipped: {len(eng.fp_to_uid)} "
                       f"keys != {n} uniques]")
             return
@@ -420,10 +514,11 @@ class DiscoveryRun:
             else:
                 shutil.rmtree(self._registry_dir, ignore_errors=True)
         if n > saved:
-            ks, vs = eng.fp_to_uid.items_arrays()
-            m = vs >= saved
-            keys = np.zeros(n - saved, np.uint64)
-            keys[vs[m] - saved] = ks[m]
+            keys = np.zeros(0 if sharded else n - saved, np.uint64)
+            if not sharded:
+                ks, vs = eng.fp_to_uid.items_arrays()
+                m = vs >= saved
+                keys[vs[m] - saved] = ks[m]
             os.makedirs(self._registry_dir, exist_ok=True)
             path = os.path.join(self._registry_dir, f"part_{saved}_{n}.npz")
             tmp = path + ".tmp"
@@ -445,8 +540,59 @@ class DiscoveryRun:
                      completed_depth=np.int64(completed_depth),
                      cache_n=np.int64(eng.cache.n),
                      n_rows=np.int64(eng.n_rows),
-                     keys_sharded=np.int64(0))
+                     keys_sharded=np.int64(eng._reg_world if sharded
+                                           else 0))
         os.replace(tmp, self._registry_path)
+
+    def _keys_shard_path(self, rank: int) -> str:
+        return self.db_path + f".registry.keys.{rank}.npz"
+
+    def _save_keys_shard(self):
+        """This rank's owned slice of the dedup keys (uids and uint64
+        keys).  Ownership is key mod world, so every key, the depth-1 keys
+        that every rank holds included, lies in exactly one shard file."""
+        eng = self.engine
+        ks, vs = eng.fp_to_uid.items_arrays()
+        own = (ks % np.uint64(eng._reg_world)) == np.uint64(eng._reg_rank)
+        path = self._keys_shard_path(eng._reg_rank)
+        tmp = path + f".tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(f, keys=ks[own], uids=vs[own].astype(np.int64),
+                     world=np.int64(eng._reg_world),
+                     run_id=np.str_(self.run_id))
+        os.replace(tmp, path)
+
+    def _load_sharded_keys(self, n: int, world: int) -> np.ndarray:
+        """The ``world`` key shard files merged into the uid-ordered key
+        array.  Each file must carry this world size and run_id (stale
+        shards of another run at the same db_path are never merged), and
+        together they must cover every uid."""
+        keys = np.zeros(n, np.uint64)
+        seen = np.zeros(n, np.bool_)
+        for rank in range(world):
+            path = self._keys_shard_path(rank)
+            if not os.path.exists(path):
+                raise RuntimeError(
+                    f"registry key shard for rank {rank}/{world} missing "
+                    f"({path}): cannot resume a sharded-registry run "
+                    "from an incomplete sidecar")
+            with np.load(path) as z:
+                w, rid = int(z["world"]), str(z["run_id"])
+                if w != world or rid != self.run_id:
+                    raise RuntimeError(
+                        f"registry key shard {path} belongs to another run "
+                        f"(world {w} vs {world}, run_id {rid!r} vs "
+                        f"{self.run_id!r}); refusing to merge it")
+                uids = z["uids"]
+                m = uids < n          # a shard may be ahead of the manifest
+                keys[uids[m]] = z["keys"][m]
+                seen[uids[m]] = True
+        if not bool(seen.all()):
+            raise RuntimeError(
+                f"registry key shards ({world} files) cover "
+                f"{int(seen.sum())} of the {n} uniques of "
+                f"{self._registry_path}: cannot resume from them")
+        return keys
 
     def _load_registry_sidecar(self):
         """The registry sidecar as uid-ordered arrays (op, a, b, depth,
@@ -503,18 +649,23 @@ class DiscoveryRun:
     def resume(cls, problem_name, run_id: str,
                config: Optional[SearchConfig] = None,
                db_path: Optional[str] = None, device="cuda",
-               verbose: bool = True,
-               report_families: bool = True) -> "DiscoveryRun":
+               verbose: bool = True, report_families: bool = True,
+               mesh=None) -> "DiscoveryRun":
         """Rebuild a run and continue it at the next depth
         (:meth:`continue_run`): from its registry sidecar when one
         matches the last completed depth, else from the rows of the run
         DB (:meth:`_resume_from_db`).  A run recorded without reject rows
         and without a matching sidecar cannot be rebuilt from its DB and
         is refused, and so is a run recorded for another PDE than the
-        problem's (an Ω run resumed without its ``omega``)."""
+        problem's (an Ω run resumed without its ``omega``).  Across
+        processes every rank waits at a barrier first, so that none
+        rebuilds before the writer has flushed the run it resumes."""
+        if mesh is not None:
+            from .parallel.distributed import barrier
+            barrier()
         self = cls(problem_name, config, run_id=run_id, db_path=db_path,
                    device=device, verbose=verbose,
-                   report_families=report_families)
+                   report_families=report_families, mesh=mesh)
         try:
             state = self.db.load_generator_state() or {}
             stored = state.get("math_definition")
@@ -600,6 +751,8 @@ class DiscoveryRun:
         for r in rows:
             if r["is_valid"]:
                 eng.valid_rows.append(_valid_row(r))
+        if eng._reg_world > 1:
+            eng.keep_owned_keys()
         self._restore_stats_stubs(state, completed)
         snap = self._load_jet_snapshot()
         if snap is not None and eng.id_offset != 0:
@@ -694,11 +847,9 @@ class DiscoveryRun:
         re-parse, composed rows re-register from their structural triples
         (display strings regenerated by the forward composition), the
         dedup map is restored key for key, and the jet cache is seeded
-        (``DiscoveryEngine.seed_cache_from_uniques``)."""
-        if int(reg.get("keys_sharded", 0)) > 1:
-            raise RuntimeError("registry sidecar with per-host key shards "
-                               "(a multi-host run); the torch port resumes "
-                               "single-device runs only")
+        (``DiscoveryEngine.seed_cache_from_uniques``).  A sharded-registry
+        run's keys are merged from its key shard files, and a
+        sharded-registry engine keeps the slice it owns."""
         eng = self.engine
         enum = eng.enumerator
         d1_exprs = [str(s) for s in reg["d1_exprs"].tolist()]
@@ -719,18 +870,28 @@ class DiscoveryRun:
             a_arr = np.asarray(reg["a"][k:], np.int32)
             b_arr = np.asarray(reg["b"][k:], np.int32)
             d_arr = np.asarray(reg["depth"][k:], np.int16)
-            if self.config.audit_rejects:
+            if self.config.audit_rejects and eng.persist_host:
                 enum.register_from_struct_compose(op_ids, a_arr, b_arr,
                                                   d_arr)
             else:
-                # no reject rows are emitted, and valid rows rebuild their
-                # strings lazily from structure: skip regenerating them
+                # no reject rows are emitted (a no-audit run, or a
+                # non-writer of a sharded-registry run), and valid rows
+                # rebuild their strings lazily from structure: skip
+                # regenerating them
                 enum.register_from_struct(op_ids, a_arr, b_arr, d_arr,
                                           exprs=None)
                 for d in np.unique(d_arr).tolist():
                     enum._dropped_string_depths.add(int(d))
-        eng.fp_to_uid.set_batch(np.asarray(reg["keys"], np.uint64),
-                                np.arange(n, dtype=np.int64))
+        if int(reg.get("keys_sharded", 0)) > 1:
+            keys = self._load_sharded_keys(n, int(reg["keys_sharded"]))
+        else:
+            keys = np.asarray(reg["keys"], np.uint64)
+        uids = np.arange(n, dtype=np.int64)
+        if eng._reg_world > 1:
+            own = (keys % np.uint64(eng._reg_world)) == np.uint64(
+                eng._reg_rank)
+            keys, uids = keys[own], uids[own]
+        eng.fp_to_uid.set_batch(keys, uids)
         eng.n_rows = int(reg["n_rows"])
         for r in self.db.rows("is_valid=1 AND depth <= ?", (completed,)):
             eng.valid_rows.append(_valid_row(r))

@@ -349,14 +349,44 @@ def test_cuda_device_without_gpu_raises():
               "--db-path", os.devnull])
 
 
-def test_cli_rejects_flags_it_cannot_serve():
-    """The multi-device flags belong to a later slice: argparse refuses
-    them.  The audit verbs parse."""
+def test_cli_rejects_flags_it_cannot_serve(tmp_path, capsys, monkeypatch):
+    """The multi-device flags parse and reach the engine: ``--devices 2
+    --shard-cache`` runs on a mesh of two CPU shards with a
+    uid-range-sharded cache, ``--multihost --shard-registry`` in one
+    process is a mesh of its one device.  What the CLI cannot serve it
+    refuses, as the JAX package's does: ``--shard-cache`` without a mesh
+    (exit 2), more cards than the host has (exit 2).  The audit verbs
+    parse."""
     from pde_engine_tpu_torch.cli import build_parser, main
-    for flag in (["--devices", "2"], ["--multihost"], ["--shard-cache"],
-                 ["--shard-registry"]):
-        with pytest.raises(SystemExit):
-            main(flag)
+    for k in ("PDE_ENGINE_NUM_PROCESSES", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    reports = []
+    for i, flags in enumerate((["--devices", "2", "--shard-cache"],
+                               ["--multihost", "--shard-registry"])):
+        d = tmp_path / str(i)
+        assert main(["--problem", "laplace", "--max-depth", "2", "--device",
+                     "cpu", "--db-path", str(d / "run.db"),
+                     "--no-report-families"] + flags) == 0
+        (rep,) = d.glob("reproduction_*.json")
+        reports.append(json.loads(rep.read_text()))
+    mesh2, one = (r["mesh"] for r in reports)
+    assert mesh2["devices"] == ["cpu", "cpu"] and mesh2["shard_cache"]
+    assert one["devices"] == ["cpu"] and one["processes"] == 1
+    assert one["registry_shards"] == 1 and not one["shard_cache"]
+    for r in reports:
+        assert r["by_depth"]["2"] == {"generated": 61, "valid": 17}
+        assert r["dispatches"]["universal"] > 0
+    capsys.readouterr()
+    assert main(["--device", "cpu", "--shard-cache", "--db-path",
+                 str(tmp_path / "x.db")]) == 2
+    assert "requires a mesh" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert main(["--devices", "2", "--db-path", str(tmp_path / "y.db")]) \
+        == 2
+    assert "1 card" in capsys.readouterr().out
+    assert not (tmp_path / "x.db").exists()
+    assert not (tmp_path / "y.db").exists()
     args = build_parser().parse_args(
         ["--print-run-id", "x", "--verify-pde", "--certify", "--watch-run",
          "y", "--find-monopole", "--audit-kerr", "--heavy-validate",

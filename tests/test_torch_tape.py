@@ -190,6 +190,47 @@ def test_make_search_kernel_raw_matches_jax():
         got.is_const.any() and (~got.screen_ok).any()
 
 
+def test_make_tape_jets_kernel_matches_jax():
+    """``make_tape_jets_kernel`` (the full verdict packing, screen jets and
+    snapped fingerprint jets of each tape) against the JAX package's on
+    the same tapes: the packing's verdict, hash and fingerprint columns
+    bit-equal, rel_max as in ``make_search_kernel_raw``'s test, and the
+    unpacked verdicts those of ``make_search_kernel_raw``."""
+    import jax.numpy as jnp
+    from pde_engine_tpu.parallel.search import \
+        make_tape_jets_kernel as jax_kernel
+    from pde_engine_tpu_torch.parallel import (make_search_kernel_raw,
+                                               make_tape_jets_kernel)
+    from pde_engine_tpu_torch.parallel.search import unpack_screen_result
+    p, jp = load_problem("force_free"), jax_load_problem("force_free")
+    exprs = list(p.known_solutions) + SEARCH_EXTRA
+    dims = (p.residual_order, MAX_NODES, p.get_residual_key(),
+            p.screen_rtol, len(p.screen_points), len(p.fingerprint_points))
+    want = [np.asarray(a) for a in jax_kernel(*dims)(
+        *_search_inputs(jp, exprs, jnp.asarray))]
+    args = _search_inputs(p, exprs, torch.as_tensor)
+    got = [a.numpy() for a in make_tape_jets_kernel(*dims)(*args)]
+    assert [a.shape for a in got] == [a.shape for a in want]
+    exact = [0, 2, 3] + list(range(4, got[0].shape[1]))
+    np.testing.assert_array_equal(got[0][:, exact], want[0][:, exact])
+    rel, j_rel = got[0][:, 1], want[0][:, 1]
+    big = (rel > 1e-3) | (j_rel > 1e-3)
+    np.testing.assert_allclose(rel[big], j_rel[big], rtol=REL_RTOL)
+    assert (rel[~big] < 1e-6).all() and (j_rel[~big] < 1e-6).all()
+    np.testing.assert_array_equal(got[2], want[2])
+    fin = np.isfinite(want[1])
+    assert np.array_equal(fin, np.isfinite(got[1]))
+    np.testing.assert_allclose(got[1][fin], want[1][fin], rtol=REL_RTOL,
+                               atol=1e-6)
+    sr = make_search_kernel_raw(*dims)(*args)
+    up = unpack_screen_result(got[0])
+    for f in ("screen_ok", "nonfinite", "is_const", "fp_finite", "fp_a",
+              "fp_b"):
+        assert np.array_equal(getattr(up, f).astype(np.int64),
+                              getattr(sr, f).numpy().astype(np.int64)), f
+    np.testing.assert_array_equal(up.fp_vals, sr.fp_vals.numpy())
+
+
 def test_library_smoke():
     """The verify skill's library smoke through the port's package
     boundary: force_free's seven knowns screen with a relative residual
