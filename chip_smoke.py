@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (``pde_engine_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py                  # phases 1-13 and 18-20
+    python3 chip_smoke.py                  # phases 1-13 and 18-21
     python3 chip_smoke.py --phases 3,9     # a subset (no result line)
     python3 chip_smoke.py --phases 14      # force_free depth 5, alone
+    python3 chip_smoke.py --phases 21      # phase 21, --no-prune to depth 4
 
 The whole script runs with ``PDE_INGEST_TIMERS=1``: every depth of every
 run prints its ingest sections below its stage line, and a depth whose
@@ -153,7 +154,28 @@ Phases, one line each (any failure exits non-zero):
               pair and fails the phase; (e) ``dryrun_multichip(2,
               "cuda")`` and ``python -m pde_engine_tpu_torch.bench
               --devices 1`` in a process of its own: (a)'s depth-4
-              candidates, and (a)'s depth-4 launches in each repetition.
+              candidates, and (a)'s depth-4 launches in each repetition;
+21. configurations — the JAX CLI's other run configurations through
+              ``cli.main``, each held to the JAX package's CPU run
+              (``NSO_JAX``, ``NP_JAX``, ``SEQ_JAX``: depths 1-2 exact,
+              deeper within 1%, its knowns): force_free
+              ``--no-special-ops --max-depth 4`` (no row may spell a
+              special op), its per-op path to depth 3 (universal only,
+              within 0.1% of the default path) and ``--batch-size 4096``
+              to depth 4 (structured), laplace ``--mode sequential
+              --heavy-checks --max-depth 3`` (the rows that reached the
+              symbolic stage: their count and digest of (signature,
+              verdict, reason, method, heavy verdict) equal the JAX
+              run's, no symbolic error), and force_free ``--no-prune``
+              to depth 3, or to depth 4 when ``--phases`` names the
+              phase; each force_free configuration run to one depth less
+              and resumed without its flag from its sidecar and, in a
+              copy without it, from its DB rows, each equal to the fresh
+              run row for row, after a resume asking for a flag the run
+              recorded on (``--no-prune`` on the ``--no-special-ops``
+              run, and the other way round) has exited 2 with one line
+              and changed no file of the run; each of the four kernels
+              must launch in the phase.
 
 Phases 14-17 run only when ``--phases`` names them (each alone fills
 much of a call):
@@ -178,7 +200,7 @@ much of a call):
               indices kept and dropped.
 
 The launch counts are reset just before each run of phases 4-9, 11,
-13-15 and 18-20 and read just after it (phases 4, 14 and 15 also by
+13-15 and 18-21 and read just after it (phases 4, 14 and 15 also by
 depth);
 the bench process of phases 12 and 14 sets its own to 0 after its seed,
 just before its warm-up, and reports them in its line.  In the kernels
@@ -213,7 +235,8 @@ bench line (``bench``), phases 14-15's runs (``depth5``), phase 18's
 (``omega``), phase 19's (``tape``) and phase 20's (``mesh``), each
 where its phase ran; ``launches_by_phase`` holds phase 20's runs under
 ``mesh_*``, ``multihost_rank*`` (each rank's own count, both of its
-runs), ``dryrun`` and ``mesh_bench``.
+runs), ``dryrun`` and ``mesh_bench``, and phase 21's under
+``configs_*`` (each kernel's also in ``config_launches``).
 ``path_shape`` holds structured's and universal's numbers at
 their paths' launch shapes.  The last lines are one JSON object
 describing the kernels, the card line and the result object.  Imports
@@ -262,9 +285,9 @@ PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
 OWN_PATH = {"segmented": "main", "structured": "batch_4096",
             "tiled": "main", "universal": "per_op"}
-N_PHASES = 20
-# 14-17 run only when asked for; 18-20 came later, in the default set
-DEFAULT_PHASES = set(range(1, 14)) | {18, 19, 20}
+N_PHASES = 21
+# 14-17 run only when asked for; 18-21 came later, in the default set
+DEFAULT_PHASES = set(range(1, 14)) | {18, 19, 20, 21}
 # phases 14-15: the TPU run of force_free to depth 5,
 # problems/force_free/outputs/report_20260820_090829.txt (59,171,371
 # depth-5 candidates in its reproduction JSON)
@@ -311,6 +334,28 @@ TAPE_JAX = {1: (5, 5, 4), 2: (168, 151, 91), 3: (9835, 6665, 1474)}
 TAPE_JAX_DIGEST = {1: "371942cd1edd4845", 2: "cd3a56bbe209d729",
                    3: "8cbae1519c42edf6"}
 TAPE_KNOWNS = ("Parabolic", "Vertical field", "X-point")
+# phase 21: the JAX package's CLI on the CPU (JAX_PLATFORMS=cpu), per
+# depth (candidates, uniques, valid) and its knowns.  ``python -m
+# pde_engine_tpu --problem force_free --no-special-ops --max-depth 4``:
+NSO_JAX = {1: (5, 5, 4), 2: (112, 104, 68), 3: (4676, 4149, 1237),
+           4: (229773, 200656, 26657)}
+NSO_KNOWNS = ("Vertical field", "X-point", "Radial", "Dipolar", "Parabolic",
+              "Bent")
+SPECIAL_OPS = ("sqrt_shift_neg", "sqrt_shift_pos", "exp_mul", "log_mul")
+# ``... --problem force_free --no-prune --max-depth 4 --no-audit-rejects``
+# (depth 3 alone gives the same depths 1-3), and its knowns at depths 3, 4
+NP_JAX = {1: (5, 5, 4), 2: (245, 202, 109), 3: (17776, 15588, 3515),
+          4: (1698378, 1505634, 130220)}
+NP_KNOWNS = {3: ("Vertical field", "X-point", "Parabolic"),
+             4: ("Vertical field", "X-point", "Radial", "Dipolar",
+                 "Parabolic", "Hyperbolic", "Bent")}
+# ``... --problem laplace --max-depth 3 --mode sequential --heavy-checks``:
+# its counts, knowns, and the count and ``funnel_digest`` of the
+# ``funnel_rows`` of its DB (the rows that reached the symbolic stage)
+SEQ_JAX = {1: (4, 4, 2), 2: (69, 61, 17), 3: (2193, 1813, 135)}
+SEQ_KNOWNS = ("Point charge (2D log potential)", "Saddle (Im z^2)",
+              "Uniform X")
+SEQ_FUNNEL = (154, "ae4050d38559a569")
 BUILD_SEEDS = {"laplace": 1, "kerr_magnetosphere": 2, "grad_shafranov": 3,
                OMEGA_TAG: 5}
 AUDIT_LIMIT = 200   # rows of phase 10's verify, heavy and certify passes
@@ -2454,6 +2499,255 @@ def phase_mesh(tmp, card, per_op):
     return out, launches
 
 
+def tree_digest(d):
+    """{path under ``d``: sha256} of every file under ``d``."""
+    import hashlib
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            p = os.path.join(root, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, d)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def funnel_rows(db):
+    """The rows of the run in ``db`` (one run a DB) that reached the
+    symbolic stage, the screen's and the float64 recheck's rejects left
+    out, as sorted lines ``signature|is_valid|validation_reason|
+    validator_method|heavy_is_valid|heavy_reason``."""
+    import sqlite3
+    con = sqlite3.connect(db)
+    (table,) = [r[0] for r in con.execute(
+        "SELECT name FROM sqlite_master WHERE name LIKE 'expressions_%'")]
+    rows = con.execute(
+        "SELECT signature, is_valid, validation_reason, validator_method, "
+        f"heavy_is_valid, heavy_reason FROM {table} WHERE validator_method "
+        "NOT IN ('screen', 'screen+f64')").fetchall()
+    con.close()
+    return sorted("|".join(str(x) for x in r) for r in rows)
+
+
+def funnel_digest(lines) -> str:
+    """The first 16 hex digits of the sha256 of ``funnel_rows``, joined
+    by newlines."""
+    import hashlib
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+
+
+def check_config(tag, rep, ref, knowns):
+    """A configuration's run against the JAX package's CPU run: per depth
+    (candidates, uniques, valid), depths 1-2 exact and deeper within 1%,
+    and the same knowns.  Returns {depth: (candidates, uniques, valid)}."""
+    got = {st["depth"]: (st["candidates"], st["unique"], st["valid"])
+           for st in rep["stats"]}
+    for d, want in ref.items():
+        have = got.get(d, (0, 0, 0))
+        tol = 0 if d <= 2 else 0.01
+        if any(abs(h - w) > tol * w for h, w in zip(have, want)):
+            fail(f"{tag} depth {d} (candidates, uniques, valid) {have} "
+                 f"against the JAX package's {want} (tolerance {tol:.0%})")
+    found = set(rep["paper_solutions_found"])
+    if found != set(knowns):
+        fail(f"{tag} knowns {sorted(found)} != the JAX package's "
+             f"{sorted(knowns)}")
+    return got
+
+
+def config_resumes(tmp, tag, flags, depth, fresh, refuse, launches):
+    """A force_free run under ``flags`` to ``depth - 1``, resumed to
+    ``depth`` without them: from its registry sidecar, and in a copy
+    without the sidecar from its DB rows (phase 11's way).  Each must
+    equal the fresh run ``fresh`` (its directory and report) row for row.
+    First a resume that asks for ``refuse``, a flag the run recorded on,
+    must exit 2 with one line and leave every file of the run as it was.
+    Each run's launch counts go into ``launches``."""
+    from pde_engine_tpu_torch.cli import main as cli
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    part = os.path.join(tmp, f"p21{tag}_part")
+    copy = os.path.join(tmp, f"p21{tag}_db")
+    os.makedirs(part)
+    ce.reset_launch_counts()
+    prep = run_cli(flags + ["--no-report-families"], part, depth=depth - 1)
+    launches[f"{tag}_part"] = dict(ce.LAUNCHES)
+    before = tree_digest(part)
+    ce.reset_launch_counts()
+    rc, text = captured(lambda: cli([
+        "--problem", "force_free", "--max-depth", str(depth), "--device",
+        "cuda", "--db-path", os.path.join(part, "run.db"), "--resume-run",
+        prep["run_id"], "--no-report-families", refuse]))
+    lines = text.strip().splitlines()
+    if rc != 2 or len(lines) != 1 or not lines[0].startswith("error: ") \
+            or any(ce.LAUNCHES.values()) or tree_digest(part) != before:
+        fail(f"{tag}: the resume asking for {refuse} returned {rc}, said "
+             f"{lines[:3]}, launched {dict(ce.LAUNCHES)}, and "
+             f"{'left' if tree_digest(part) == before else 'changed'} the "
+             "run's files")
+    shutil.copytree(part, copy)
+    drop_sidecar(copy)
+    out = {"refused": lines[0]}
+    for how, d in (("sidecar", part), ("db_rebuild", copy)):
+        log = []
+        ce.reset_launch_counts()
+        rrep = run_cli(["--resume-run", prep["run_id"],
+                        "--no-report-families"], d, depth=depth, log=log)
+        launches[f"{tag}_resume_{how}"] = dict(ce.LAUNCHES)
+        if ("from its DB rows" in log[0]) != (how == "db_rebuild"):
+            fail(f"{tag}: the {how} resume did not take its path")
+        if counts_of(rrep) != counts_of(fresh[1]):
+            fail(f"{tag}: resumed ({how}) counts {counts_of(rrep)} != the "
+                 f"fresh run's {counts_of(fresh[1])}")
+        n = same_rows(os.path.join(fresh[0], "run.db"), fresh[1],
+                      os.path.join(d, "run.db"), rrep)
+        out[how] = {"rows": n, "wall_s": rrep["wall_seconds"]}
+    say(f"  {tag}: {' '.join(flags)} to depth {depth - 1}, resumed to "
+        f"depth {depth} without the flags: sidecar and DB-rebuild resumes "
+        f"equal the fresh run row for row ({out['sidecar']['rows']:,} rows; "
+        f"walls {out['sidecar']['wall_s']:.1f} / "
+        f"{out['db_rebuild']['wall_s']:.1f} s); {refuse} refused with exit "
+        f"2, no file changed: {lines[0]!r}")
+    return out
+
+
+def phase_configs(tmp, card, deep):
+    """Phase 21: the JAX CLI's remaining run configurations through the
+    port's CLI on the card, each held to the JAX package's CPU run:
+    force_free ``--no-special-ops`` to depth 4 (the default batch, the
+    per-op path to depth 3, and ``--batch-size 4096`` to depth 4, so
+    that all four kernels launch), laplace ``--mode sequential
+    --heavy-checks`` to depth 3, and force_free ``--no-prune`` to depth 3
+    (depth 4 with ``deep``); each force_free configuration resumed
+    without its flag from the sidecar and from the DB rows, row for row
+    equal to its fresh run, after a refused resume that asks for a flag
+    the run recorded on.  Returns (summary, launch counts by run)."""
+    from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    launches, out = {}, {}
+    nso = ["--no-special-ops"]
+    d = os.path.join(tmp, "p21nso")
+    os.makedirs(d)
+    with LaunchTimer(trace=True) as timer:
+        ce.reset_launch_counts()
+        rep = run_cli(nso + ["--no-report-families"], d)
+        launches["nso"] = dict(ce.LAUNCHES)
+    got = check_config("--no-special-ops", rep, NSO_JAX, NSO_KNOWNS)
+    special = db_rows(os.path.join(d, "run.db"), rep, "COUNT(*)",
+                      "WHERE " + " OR ".join(
+                          f"expression LIKE '%{op}(%'"
+                          for op in SPECIAL_OPS))[0][0]
+    if special:
+        fail(f"--no-special-ops: {special} rows spell a special op")
+    stage_lines(rep, card)
+    say(f"  --no-special-ops --max-depth 4: (candidates, uniques, valid) "
+        f"{got} (the JAX package on the CPU: {NSO_JAX}); knowns "
+        f"{sorted(rep['paper_solutions_found'])}; launches "
+        f"{launches['nso']}; kernel device ms (activity trace) "
+        + ", ".join(f"{k} {fmt_ms(timer.device_ms(k))}"
+                    for k in ("segmented", "tiled"))
+        + f"; wall {rep['wall_seconds']:.1f} s")
+    out["no_special_ops"] = {
+        "counts": got, "wall_s": rep["wall_seconds"],
+        "device_ms": {k: timer.device_ms(k) for k in ce.KERNELS
+                      if timer.events[k]},
+        "resume": config_resumes(tmp, "nso", nso, 4, (d, rep),
+                                 "--no-prune", launches)}
+
+    ce.reset_launch_counts()
+    rep3, _ = api_run(os.path.join(tmp, "p21nso_per_op"), 3,
+                      use_segmented=False, include_special_ops=False)
+    launches["nso_per_op_d3"] = l3 = dict(ce.LAUNCHES)
+    c3 = {st["depth"]: (st["candidates"], st["unique"], st["valid"])
+          for st in rep3["stats"]}
+    if l3["universal"] <= 0 or any(l3[k] for k in ("segmented", "structured",
+                                                   "tiled")):
+        fail(f"the --no-special-ops per-op run launched {l3}: want "
+             "universal only")
+    for dd in (1, 2, 3):
+        if c3[dd][0] != got[dd][0] or any(
+                abs(c3[dd][i] - got[dd][i]) > VALID_SPREAD * got[dd][i]
+                for i in (1, 2)):
+            fail(f"--no-special-ops per-op depth {dd} {c3[dd]} not within "
+                 f"{VALID_SPREAD:.1%} of the default path's {got[dd]}")
+    say(f"  --no-special-ops, per-op path to depth 3: {c3}; launches {l3}; "
+        f"wall {rep3['wall_seconds']:.1f} s")
+
+    d = os.path.join(tmp, "p21nso_4096")
+    os.makedirs(d)
+    ce.reset_launch_counts()
+    rep4 = run_cli(nso + ["--batch-size", "4096", "--no-audit-rejects",
+                          "--no-report-families"], d)
+    launches["nso_batch_4096"] = l4 = dict(ce.LAUNCHES)
+    c4 = counts_of(rep4)
+    if l4["structured"] <= 0:
+        fail(f"--no-special-ops at --batch-size 4096 launched {l4}")
+    for dd, (u, v) in c4.items():
+        if u != got[dd][1] or abs(v - got[dd][2]) > VALID_SPREAD * got[dd][2]:
+            fail(f"--no-special-ops depth {dd}: --batch-size 4096 {(u, v)} "
+                 f"against the default batch's {got[dd][1:]}")
+    say(f"  --no-special-ops --batch-size 4096 to depth 4: {c4}; launches "
+        f"{l4}; wall {rep4['wall_seconds']:.1f} s")
+
+    d = os.path.join(tmp, "p21seq")
+    os.makedirs(d)
+    ce.reset_launch_counts()
+    rep = run_cli(["--mode", "sequential", "--heavy-checks",
+                   "--no-report-families"], d, problem="laplace", depth=3)
+    launches["laplace_sequential"] = dict(ce.LAUNCHES)
+    got = check_config("laplace --mode sequential --heavy-checks", rep,
+                       SEQ_JAX, SEQ_KNOWNS)
+    lines = funnel_rows(os.path.join(d, "run.db"))
+    digest = funnel_digest(lines)
+    errors = sum("symbolic-error" in ln for ln in lines)
+    if (len(lines), digest) != SEQ_FUNNEL or errors:
+        fail(f"laplace --mode sequential --heavy-checks: {len(lines)} rows "
+             f"reached the symbolic stage (digest {digest}, {errors} "
+             f"symbolic errors), the JAX package's {SEQ_FUNNEL}; e.g. "
+             f"{lines[:3]}")
+    say(f"  laplace --mode sequential --heavy-checks --max-depth 3: {got}; "
+        f"{len(lines)} rows reached the symbolic stage, their (signature, "
+        f"is_valid, reason, method, heavy_is_valid, heavy_reason) digest "
+        f"{digest}, the JAX package's; launches "
+        f"{launches['laplace_sequential']}; wall {rep['wall_seconds']:.1f} s")
+    out["sequential"] = {"counts": got, "funnel_rows": len(lines),
+                         "digest": digest, "wall_s": rep["wall_seconds"]}
+
+    np_depth = 4 if deep else 3
+    npf = ["--no-prune"]
+    d = os.path.join(tmp, "p21np")
+    os.makedirs(d)
+    with LaunchTimer(trace=True) as timer:
+        ce.reset_launch_counts()
+        rep = run_cli(npf + ["--no-report-families"], d, depth=np_depth)
+        launches["no_prune"] = dict(ce.LAUNCHES)
+    got = check_config("--no-prune", rep,
+                       {k: v for k, v in NP_JAX.items() if k <= np_depth},
+                       NP_KNOWNS[np_depth])
+    stage_lines(rep, card)
+    say(f"  --no-prune --max-depth {np_depth}: {got} (the JAX package on the "
+        f"CPU: {NP_JAX}); knowns {sorted(rep['paper_solutions_found'])}; "
+        f"launches {launches['no_prune']}; kernel device ms (activity "
+        "trace) " + ", ".join(f"{k} {fmt_ms(timer.device_ms(k))}"
+                              for k in ("segmented", "tiled"))
+        + f"; wall {rep['wall_seconds']:.1f} s")
+    out["no_prune"] = {
+        "depth": np_depth, "counts": got, "wall_s": rep["wall_seconds"],
+        "stages": [{k: st[k] for k in ("depth", "candidates", "unique",
+                                         "valid", "seconds", "t_enum",
+                                         "t_device", "t_ingest", "t_gray")}
+                   for st in rep["stats"]],
+        "device_ms": {k: timer.device_ms(k) for k in ce.KERNELS
+                      if timer.events[k]},
+        "resume": config_resumes(tmp, "np", npf, np_depth, (d, rep),
+                                 "--no-special-ops", launches)}
+
+    total = {k: sum(n[k] for n in launches.values()) for k in ce.KERNELS}
+    for k, n in total.items():
+        if not n:
+            fail(f"kernel {k} was never launched by phase 21: {launches}")
+    out["launches"] = launches
+    return out, {f"configs_{k}": v for k, v in launches.items()}
+
+
 NEEDS = {5: {4}, 6: {4}, 7: {4}, 8: {6}, 10: {4}, 11: {4, 6, 7, 8},
          12: {4}, 17: {4}}
 
@@ -2463,7 +2757,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: 1-13, "
-                         "18-20; "
+                         "18-21; "
                          "1 and 2 always run; any other set prints no "
                          "result line)")
     args = ap.parse_args(argv)
@@ -2849,6 +3143,7 @@ def main(argv=None) -> int:
             tape_run = phase_tape(card)
             end(19)
         mesh_run = None
+        configs_run = None
         if 20 in phases:
             begin(20, "mesh: --devices 1 through cli.main; [cuda:0, "
                   "cuda:0] replicated and uid-range-sharded; two "
@@ -2859,6 +3154,16 @@ def main(argv=None) -> int:
                 if 6 in phases else None)
             phases_n.update(mesh_n)
             end(20)
+        if 21 in phases:
+            deep = args.phases is not None
+            begin(21, "configurations: force_free --no-special-ops to depth "
+                  "4 (default batch, per-op to depth 3, --batch-size 4096), "
+                  "laplace --mode sequential --heavy-checks to depth 3, "
+                  f"force_free --no-prune to depth {4 if deep else 3}; "
+                  "resumes without the flags, refused conflicting resumes")
+            configs_run, configs_n = phase_configs(tmp, card, deep)
+            phases_n.update(configs_n)
+            end(21)
 
     say("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(t_phase.items())}))
@@ -2874,6 +3179,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tape": tape_run}), flush=True)
     if mesh_run is not None:
         print(json.dumps({"mesh": mesh_run}), flush=True)
+    if configs_run is not None:
+        print(json.dumps({"configs": configs_run}), flush=True)
     if phases != DEFAULT_PHASES:
         say(f"phases {sorted(phases)} passed in {time.time() - t_all:.1f} "
             "s (a subset: no result line)")
@@ -2941,6 +3248,8 @@ def main(argv=None) -> int:
             "max_abs_err": omega_bad[1], "max_ulp_exp_log": omega_bad[2],
             "exp_log_jet_rows_differ": omega_bad[0],
             "launches": {ph: n[k] for ph, n in omega_run["launches"].items()}}
+        kernels[-1]["config_launches"] = {
+            ph: n[k] for ph, n in configs_run["launches"].items()}
     say(f"total {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -11,8 +11,10 @@
         python -m pde_engine_tpu_torch --multihost [--shard-registry]
 
 Runs a fresh discovery, resumes a run and extends it to ``--max-depth``
-(from its registry sidecar, or from the rows of its DB), reads a run back
-from its DB with the post-hoc audits, or watches a live run, on an
+(from its registry sidecar, or from the rows of its DB, with the op set
+and pruning the run recorded: ``--no-special-ops`` or ``--no-prune`` on a
+run recorded with the special ops or with pruning exits 2), reads a run
+back from its DB with the post-hoc audits, or watches a live run, on an
 explicit device type (``--device cuda`` by default; ``cpu`` runs the
 plain torch kernels).  ``--devices K`` shards each batch over the first
 K cards (K CPU shards with ``--device cpu``), with a replicated jet
@@ -201,7 +203,7 @@ def main(argv=None) -> int:
 
     from .models import load_problem
     from .parallel import cuda_engine
-    from .runtime import DiscoveryRun
+    from .runtime import DiscoveryRun, ResumeConflict
     from .utils.config import SearchConfig
 
     config = SearchConfig(
@@ -260,7 +262,13 @@ def main(argv=None) -> int:
     kw = dict(config=config, db_path=args.db_path, device=args.device,
               report_families=not args.no_report_families, mesh=mesh)
     if args.resume_run:
-        run = DiscoveryRun.resume(problem, args.resume_run, **kw)
+        try:
+            run = DiscoveryRun.resume(problem, args.resume_run, **kw)
+        except ResumeConflict as e:
+            # every rank reads the same stored state, so every rank is here
+            print(f"error: {e}", flush=True)
+            distributed.shutdown()
+            return 2
         go = run.continue_run
     else:
         run = DiscoveryRun(problem, **kw)

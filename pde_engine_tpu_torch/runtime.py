@@ -9,7 +9,8 @@ snapshot (``<db>.jets.d/shard_<lo>_<hi>.npz``) and the registry sidecar
 (``<db>.registry.npz`` plus ``<db>.registry.d/part_<lo>_<hi>.npz``), in
 the JAX package's file formats.  :meth:`DiscoveryRun.resume` rebuilds a
 run from its registry sidecar, or, without one, from the rows of the run
-DB, and continues at the next depth.  The audits (``--print-run-id`` and
+DB, and continues at the next depth with the op set and pruning the run
+recorded.  The audits (``--print-run-id`` and
 its verbs) read a run back from its DB alone.
 
 On a mesh (``mesh=``, ``parallel/mesh.py``) the run is the same; across
@@ -28,6 +29,7 @@ import json
 import os
 import re
 import shutil
+import sqlite3
 import time
 from typing import Dict, List, Optional
 
@@ -38,7 +40,7 @@ from .ops import optable as ot
 from .models.base import Problem, load_problem
 from .pipeline import DepthStats, DiscoveryEngine, Row
 from .utils.config import SearchConfig
-from .utils.db import RunDB, db_path_for, new_run_id
+from .utils.db import ReadOnlyRunDB, RunDB, db_path_for, new_run_id
 from .utils.report import build_report, format_report_text, write_report_files
 
 
@@ -78,7 +80,6 @@ class DiscoveryRun:
         if self.is_writer:
             self.db = RunDB(self.db_path, self.run_id)
         else:
-            from .utils.db import ReadOnlyRunDB
             self.db = ReadOnlyRunDB(self.db_path, self.run_id)
         # native reject sink: mass reject rows go straight into the run DB
         # through the C++ writer
@@ -657,17 +658,27 @@ class DiscoveryRun:
         DB (:meth:`_resume_from_db`).  A run recorded without reject rows
         and without a matching sidecar cannot be rebuilt from its DB and
         is refused, and so is a run recorded for another PDE than the
-        problem's (an Ω run resumed without its ``omega``).  Across
-        processes every rank waits at a barrier first, so that none
-        rebuilds before the writer has flushed the run it resumes."""
+        problem's (an Ω run resumed without its ``omega``).  The engine
+        is built with the op set and pruning the run recorded
+        (:func:`recorded_config`), so the resumed depths extend the
+        enumeration of the stored ones.  Across processes every rank
+        waits at a barrier first, so that none rebuilds before the writer
+        has flushed the run it resumes; every rank then reads the same
+        stored state."""
         if mesh is not None:
             from .parallel.distributed import barrier
             barrier()
-        self = cls(problem_name, config, run_id=run_id, db_path=db_path,
+        problem = (problem_name if isinstance(problem_name, Problem)
+                   else load_problem(problem_name))
+        state = stored_state(
+            db_path or db_path_for(problem.get_output_dir(), run_id),
+            run_id)
+        # the engine enumerates the resumed depths as the run recorded
+        config = recorded_config(config or SearchConfig(), state, run_id)
+        self = cls(problem, config, run_id=run_id, db_path=db_path,
                    device=device, verbose=verbose,
                    report_families=report_families, mesh=mesh)
         try:
-            state = self.db.load_generator_state() or {}
             stored = state.get("math_definition")
             if stored is not None and stored != self.engine._math_def:
                 # e.g. a rotating force_free run resumed without --omega:
@@ -678,9 +689,6 @@ class DiscoveryRun:
                     "with the problem it ran (--omega of a rotating "
                     "force_free run)")
             completed = int(state.get("completed_depth", 0))
-            self.config.include_special_ops = bool(
-                state.get("include_special_ops",
-                          self.config.include_special_ops))
             reg = self._load_registry_sidecar()
             if (reg is not None and completed
                     and int(reg["completed_depth"]) == completed):
@@ -1135,6 +1143,53 @@ class DiscoveryRun:
             self._native_sink = None
         self.engine._gray_pool.shutdown(wait=True)
         self.db.close()
+
+
+# the generator-state flags that decide which expressions a run
+# enumerates, each with the CLI flag that turns it off
+RECORDED_FLAGS = (("include_special_ops", "--no-special-ops"),
+                  ("prune", "--no-prune"))
+
+
+class ResumeConflict(ValueError):
+    """A resume asked for another enumeration than its run recorded."""
+
+
+def stored_state(db_path: str, run_id: str) -> Dict:
+    """A run's generator state, read before the run is opened: {} when
+    there is no DB or no state.  A plain connection closes the WAL it
+    opens, where a read-only one would leave its ``-wal`` and ``-shm``
+    files behind, so a resume that is refused leaves the run's files as
+    they were."""
+    if not os.path.exists(db_path):
+        return {}
+    con = sqlite3.connect(db_path)
+    try:
+        r = con.execute("SELECT state_json FROM generator_progress "
+                        "WHERE run_id=?", (run_id,)).fetchone()
+    finally:
+        con.close()
+    return json.loads(r[0]) if r else {}
+
+
+def recorded_config(config: SearchConfig, state: Dict,
+                    run_id: str) -> SearchConfig:
+    """``config`` with the op set and pruning a run recorded in its
+    generator ``state``: a flag left on (the default) takes the stored
+    setting, and a flag turned off on a run recorded with it on raises
+    :class:`ResumeConflict`, since the resumed depths would be another
+    enumeration.  A state from before a flag was stored counts as the
+    default (on); without a state the config is kept as it is."""
+    if not state:
+        return config
+    stored = {k: bool(state.get(k, True)) for k, _ in RECORDED_FLAGS}
+    for k, flag in RECORDED_FLAGS:
+        if stored[k] and not getattr(config, k):
+            raise ResumeConflict(
+                f"run {run_id} was recorded with {k}=True: {flag} would "
+                "enumerate its deeper depths from another set of "
+                f"expressions; resume it without {flag}")
+    return dataclasses.replace(config, **stored)
 
 
 def _row_key(r) -> int:
