@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``pde_engine_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py                  # phases 1-13 and 18-21
+    python3 chip_smoke.py                  # phases 1-13 and 18-22
     python3 chip_smoke.py --phases 3,9     # a subset (no result line)
     python3 chip_smoke.py --phases 14      # force_free depth 5, alone
     python3 chip_smoke.py --phases 21      # phase 21, --no-prune to depth 4
@@ -47,7 +47,8 @@ Phases, one line each (any failure exits non-zero):
               with the same rules; all four on the Ω build, with the
               order-2 builds' checks; then each kernel's ms per
               262,144-row launch on the force_free and Ω builds, timed in
-              turns on the same inputs, beside its bound;
+              turns on the same inputs, beside its bound, and on each
+              order-2 build at its own widths and points (T = 6);
 4. main     — ``python -m pde_engine_tpu_torch --problem force_free
               --max-depth 4 --device cuda`` through ``cli.main``: 7/7
               known solutions, exact depth-1/2 counts, depth-3/4 counts
@@ -113,7 +114,7 @@ Phases, one line each (any failure exits non-zero):
 13. canaries — a no-audit force_free depth-4 run through
               ``DiscoveryEngine``: 7/7 knowns, phase 4's counts, and the
               three recall canaries of ``pde_engine_tpu_torch/canary.py``
-              recovered as valid rows.
+              recovered as valid rows; its launches' rows counted.
 
 18. Ω        — ``--problem force_free --omega 1.0 --max-depth 4
               --no-audit-rejects`` through ``cli.main``: depths 1-2 equal
@@ -146,10 +147,11 @@ Phases, one line each (any failure exits non-zero):
               processes sharing the card over gloo
               (``PDE_ENGINE_NUM_PROCESSES=2``, ``PDE_ENGINE_PROCESS_ID``,
               ``PDE_ENGINE_COORDINATOR`` on a free local port), to depth
-              3 and resumed to depth 4: each names gloo on its first
-              line, both ranks print the same per-depth counts, their
-              dedup maps sum to the uniques, both key shard files exist,
-              rank 1 writes nothing, the writer's rows equal (a)'s, and
+              2 and resumed to depth 3 (``MULTIHOST_DEPTH``): each names
+              gloo on its first line, both ranks print the same
+              per-depth counts, their dedup maps sum to the uniques,
+              both key shard files exist, rank 1 writes nothing, the
+              writer's rows equal (a)'s rows of those depths, and
               both ranks launch ``universal``; a failed rank kills the
               pair and fails the phase; (e) ``dryrun_multichip(2,
               "cuda")`` and ``python -m pde_engine_tpu_torch.bench
@@ -175,7 +177,25 @@ Phases, one line each (any failure exits non-zero):
               recorded on (``--no-prune`` on the ``--no-special-ops``
               run, and the other way round) has exited 2 with one line
               and changed no file of the run; each of the four kernels
-              must launch in the phase.
+              must launch in the phase;
+22. surface  — the library calls with jax blocked: (a)
+              ``pde_engine_tpu_torch.load_problem("force_free")``,
+              ``utils.SearchConfig`` and ``ops.{jets, optable, tape}``
+              resolve, and ``dryrun.entry()`` runs on the card: its
+              screen_ok is the JAX package's (the seven knowns pass,
+              ``rho*z`` does not) and its verdict flags and fingerprints
+              the CPU's; (b) ``summary()`` of phase 13's engine, printed
+              on one line: its totals those of the engine's stats, 7
+              knowns, ``candidates_screened`` the oracle's rows and the
+              launched candidates, the rows phase 13's launches counted
+              the engine's; (c) a copy of ``pde_engine_tpu_torch/``
+              alone in a temporary directory (an installed package's
+              layout), run in a process of its own with ``HOME`` and
+              ``XDG_CACHE_HOME`` in another: it builds the native core
+              and force_free's kernels under
+              ``$XDG_CACHE_HOME/pde_engine_tpu_torch``, launches
+              ``universal`` once bit-equal to its plain twin, and writes
+              nothing inside the copy.
 
 Phases 14-17 run only when ``--phases`` names them (each alone fills
 much of a call):
@@ -225,15 +245,17 @@ residual, counted per op
 by ``ops/cuda_emit.op_counts``) over 67 TFLOP/s: the H100 SXM data
 sheet; a cache row and a candidate's outputs count the family's own
 jet widths (``row_bytes``, ``out_bytes``).  ``family_builds`` holds
-each order-2 build's registers, spills, blocks per SM and mismatching
-rows, ``family_launches`` each kernel's launches in phase 9;
+each order-2 build's registers, spills, blocks per SM, mismatching
+rows, and its ms per 262,144-row launch with its bound;
+``family_launches`` each kernel's launches in phase 9;
 ``omega_build`` the Ω build's registers, spills, its ms per 262,144 rows
 beside force_free's from the same turns, its bound, its error against
 its twin and its launches in each pass of phase 18; the lines
 before the kernels line hold phase 9's runs (``families``), phase 12's
 bench line (``bench``), phases 14-15's runs (``depth5``), phase 18's
-(``omega``), phase 19's (``tape``) and phase 20's (``mesh``), each
-where its phase ran; ``launches_by_phase`` holds phase 20's runs under
+(``omega``), phase 19's (``tape``), phase 20's (``mesh``), phase
+21's (``configs``) and phase 22's (``surface``), each where its phase
+ran; ``launches_by_phase`` holds phase 20's runs under
 ``mesh_*``, ``multihost_rank*`` (each rank's own count, both of its
 runs), ``dryrun`` and ``mesh_bench``, and phase 21's under
 ``configs_*`` (each kernel's also in ``config_launches``).
@@ -269,6 +291,9 @@ STRUCT_ROWS = 4096   # a structured launch at --batch-size 4096
 RAGGED_ROWS = (1, 37)  # universal launches whose last block ends in a warp
 DEPTH3_ROWS = 9134   # cache rows of the depth <= 3 uniques (5 + 153 + 8,976)
 MESH_LIB_DEPTH = 3   # phase 20's (b) and (c) with the default window
+# phase 20's (d): the pair runs to one depth less and is resumed to this
+# one (depth 3 keeps the default run well inside its time limit)
+MULTIHOST_DEPTH = 3
 EXP_LOG_OPS = ("exp", "exp_neg", "log", "exp_mul", "log_mul")
 ULP_BOUND = 4
 VALID_SPREAD = 0.001  # phases 5 and 6 vs phase 4 valid counts per depth
@@ -285,9 +310,9 @@ PARTIAL_ROWS = PARTIAL_TILES * 512 + 77  # rows of the partial segmented one
 GROUP_KERNELS = ("segmented", "tiled")
 OWN_PATH = {"segmented": "main", "structured": "batch_4096",
             "tiled": "main", "universal": "per_op"}
-N_PHASES = 21
-# 14-17 run only when asked for; 18-21 came later, in the default set
-DEFAULT_PHASES = set(range(1, 14)) | {18, 19, 20, 21}
+N_PHASES = 22
+# 14-17 run only when asked for; 18-22 came later, in the default set
+DEFAULT_PHASES = set(range(1, 14)) | {18, 19, 20, 21, 22}
 # phases 14-15: the TPU run of force_free to depth 5,
 # problems/force_free/outputs/report_20260820_090829.txt (59,171,371
 # depth-5 candidates in its reproduction JSON)
@@ -935,10 +960,11 @@ def phase_family(tag, spec, dev, seed, problem=None):
     return tuple(worst)
 
 
-def build_ms(builds, dev, seed=4):
+def build_ms(builds, dev, problem, seed=4):
     """Milliseconds per 262,144-row launch of each kernel for each build
-    of ``builds`` ({tag: spec}, force_free's widths and points), on the
-    same inputs as ``phase_kernels``'s timings (a seeded random cache of
+    of ``builds`` ({tag: spec}, all of one problem's widths: its points
+    ``problem``'s, T jet coefficients a point), on the inputs of
+    ``phase_kernels``'s timings at those widths (a seeded random cache of
     4 x 262,144 rows; segmented and tiled over all 18 ops by 512-row
     tiles, structured on two ops, universal once per op), timed in turns
     (first build, the others, then back) and averaged over the turns.
@@ -946,17 +972,16 @@ def build_ms(builds, dev, seed=4):
     import numpy as np
     import torch
 
-    from pde_engine_tpu_torch.models import load_problem
     from pde_engine_tpu_torch.ops.cuda_emit import op_counts
     from pde_engine_tpu_torch.parallel import cuda_engine as ce
     from pde_engine_tpu_torch.parallel import search
     from pde_engine_tpu_torch.parallel.incremental import OP_ORDER
     from pde_engine_tpu_torch.parallel.search import snap_fp_jets_np
 
-    problem = load_problem("force_free")
     spec0 = next(iter(builds.values()))
     rng = np.random.default_rng(seed)
-    C, T, n_ops, unary = 4 * SUPER, 15, len(OP_ORDER), ce.N_UNARY
+    C, T = 4 * SUPER, spec0.sdim // spec0.n_screen
+    n_ops, unary = len(OP_ORDER), ce.N_UNARY
     s = rng.normal(0.0, 0.5, size=(C, spec0.n_screen, T)).astype(np.float32)
     s[..., 0] = rng.uniform(0.3, 1.5, size=(C, spec0.n_screen))
     f = rng.normal(0.0, 0.5, size=(C, spec0.n_fp, 3)).astype(np.float32)
@@ -1693,7 +1718,8 @@ def phase_canary(card, c4):
     through ``DiscoveryEngine`` (the port of tests/test_recall_canary.py):
     7/7 knowns, every canary a valid row whose dedup key maps back to its
     uid, and, with phase 4 run, phase 4's counts.  Returns the launch
-    counts."""
+    counts and, for phase 22, the engine's ``summary()``, its launched
+    rows and oracle rows, and the rows its launches counted."""
     from pde_engine_tpu_torch import canary
     from pde_engine_tpu_torch.models import load_problem
     from pde_engine_tpu_torch.parallel import cuda_engine as ce
@@ -1702,9 +1728,10 @@ def phase_canary(card, c4):
     t0 = time.time()
     eng = DiscoveryEngine(load_problem("force_free"), SearchConfig(
         max_depth=4, audit_rejects=False), device="cuda")
-    ce.reset_launch_counts()
-    eng.run(4)
-    launches = dict(ce.LAUNCHES)
+    with LaunchTimer() as timer:
+        ce.reset_launch_counts()
+        eng.run(4)
+        launches = dict(ce.LAUNCHES)
     counts = {s.depth: (s.unique, s.valid) for s in eng.stats}
     found = {r.paper_solution_name for r in eng.valid_rows
              if r.paper_solution_name}
@@ -1726,7 +1753,12 @@ def phase_canary(card, c4):
     say(f"  7/7 knowns; counts {counts}"
         + ("" if c4 is None else " (phase 4's)")
         + f"; launches {launches}; {time.time() - t0:.1f} s")
-    return launches
+    return launches, {
+        "summary": eng.summary(), "stats": [vars(s) for s in eng.stats],
+        "valid_rows": len(eng.valid_rows),
+        "launched_rows": eng.launched_rows(), "timer_rows": dict(timer.rows),
+        "oracle_rows": eng.stats[0].candidates
+        + len(eng.problem.known_solutions)}
 
 
 def phase_omega(tmp, card):
@@ -2402,11 +2434,12 @@ def phase_mesh(tmp, card, per_op):
               "--shard-registry", "--no-report-families", "--db-path",
               os.path.join(shared, "run.db")]
     t0 = time.time()
-    first = run_pair(common + ["--max-depth", "3"], dirs["d"], "d3")
+    first = run_pair(common + ["--max-depth", str(MULTIHOST_DEPTH - 1)],
+                     dirs["d"], f"d{MULTIHOST_DEPTH - 1}")
     import re
     run_id = re.search(r"^Run (\S+):", first[0], re.M).group(1)
-    second = run_pair(common + ["--max-depth", "4", "--resume-run", run_id],
-                      dirs["d"], "resume")
+    second = run_pair(common + ["--max-depth", str(MULTIHOST_DEPTH),
+                                "--resume-run", run_id], dirs["d"], "resume")
     wall_d = time.time() - t0
     recs = []
     for r in (0, 1):
@@ -2440,14 +2473,16 @@ def phase_mesh(tmp, card, per_op):
         fail(f"{len(reports)} report sets for the pair's 2 runs: {reports}")
     with open(os.path.join(shared, reports[-1])) as fh:
         rep_d = json.load(fh)
-    if len(rep_d["paper_solutions_found"]) != 7:
-        fail(f"(d) knowns {rep_d['paper_solutions_found']}")
-    n_d = same_rows(db_a, rep_a, os.path.join(shared, "run.db"), rep_d)
+    n_d = same_rows(db_a, rep_a, os.path.join(shared, "run.db"), rep_d,
+                    f"WHERE depth <= {MULTIHOST_DEPTH}")
     ex = rep_d["mesh"]["exchange"]
-    say(f"  (d) 2 processes on one card, gloo, sharded registry: depth 3 "
-        f"then resumed to 4 in {wall_d:.1f} s; both ranks "
+    say(f"  (d) 2 processes on one card, gloo, sharded registry: depth "
+        f"{MULTIHOST_DEPTH - 1} then resumed to {MULTIHOST_DEPTH} in "
+        f"{wall_d:.1f} s; both ranks "
         f"{recs[0][0]}; dedup maps {keys} keys (sum {uniques:,}, the "
-        f"uniques); the writer's rows equal (a)'s row for row ({n_d:,}); "
+        f"uniques); the writer's rows equal (a)'s of depths 1-"
+        f"{MULTIHOST_DEPTH} row for row ({n_d:,}), "
+        f"{len(rep_d['paper_solutions_found'])} knowns; "
         f"rank 1 wrote nothing; key shards of ranks 0 and 1; universal "
         f"launches {launches['multihost_rank0']['universal']} and "
         f"{launches['multihost_rank1']['universal']}; the writer's "
@@ -2458,8 +2493,8 @@ def phase_mesh(tmp, card, per_op):
                         "map_keys": keys, "exchange_resumed_rank0": ex,
                         "launches": {r: launches[f"multihost_rank{r}"]
                                      for r in (0, 1)},
-                        "stage_d4": next(st for st in rep_d["stats"]
-                                         if st["depth"] == 4)}
+                        "stage": next(st for st in rep_d["stats"]
+                                      if st["depth"] == MULTIHOST_DEPTH)}
 
     # (e) the dry run over two shards of the card, and the mesh bench
     ce.reset_launch_counts()
@@ -2748,8 +2783,181 @@ def phase_configs(tmp, card, deep):
     return out, {f"configs_{k}": v for k, v in launches.items()}
 
 
+# phase 22: screen_ok of the JAX package's __graft_entry__.entry() batch
+# (force_free's seven knowns, then rho*z) under jax.jit on the CPU, to
+# which tests/test_torch_library.py::test_entry_equals_jax_entry holds
+# the port's entry("cpu")
+ENTRY_SCREEN_OK_JAX = (True,) * 7 + (False,)
+ENTRY_FLAGS = ("screen_ok", "nonfinite", "is_const", "fp_finite", "fp_a",
+               "fp_b")
+INSTALLED_ROWS = 4096   # phase 22's universal launch from the copy
+# the JAX DepthStats fields, each depth's entry of summary()
+SUMMARY_DEPTH_FIELDS = ("depth", "candidates", "unique", "valid", "seconds",
+                        "t_enum", "t_device", "t_ingest", "t_gray")
+# phase 22 (c), in a process of its own: the package copy at argv[1]
+# builds force_free's kernels and the native core, and launches universal
+# once against its plain twin
+_INSTALLED = r"""
+import json, os, sys, time
+sys.modules["jax"] = None
+sys.modules["pde_engine_tpu"] = None
+import numpy as np
+import torch
+import pde_engine_tpu_torch as pkg
+from pde_engine_tpu_torch.parallel import cuda_engine as ce
+from pde_engine_tpu_torch.parallel.incremental import OP_INDEX
+from pde_engine_tpu_torch.parallel.search import snap_fp_jets_np
+from pde_engine_tpu_torch.pipeline import cuda_emit_spec
+from pde_engine_tpu_torch.utils import cuda_build, native
+site, rows = sys.argv[1], int(sys.argv[2])
+if not os.path.abspath(pkg.__file__).startswith(site + os.sep):
+    sys.exit(f"imported {pkg.__file__}, not the copy under {site}")
+p = pkg.load_problem("force_free")
+spec = cuda_emit_spec(p, p.screen_rtol)
+t0 = time.time()
+core = native.load_core()
+lib = ce._library(spec)
+t_build = time.time() - t0
+rng = np.random.default_rng(22)
+C = 4 * rows
+cs = torch.as_tensor(rng.normal(0.0, 0.5, size=(C, spec.sdim)).astype(
+    np.float32)).cuda()
+cf = torch.as_tensor(snap_fp_jets_np(rng.uniform(0.3, 1.5, size=(
+    C, spec.fdim)).astype(np.float32))).cuda()
+ab = torch.as_tensor(rng.integers(0, C, size=(rows, 2), dtype=np.int32)
+                     ).cuda()
+sp, fp = (torch.as_tensor(np.asarray(x, np.float32)).cuda()
+          for x in (p.screen_points, p.fingerprint_points))
+args = (ab, OP_INDEX["mul"], sp, fp)
+out = ce.universal(spec, cs, cf, *args)
+ref = ce.universal_ref(spec, cs, cf, *args)
+same = all(bool(((x.view(torch.int32) == y.view(torch.int32))
+                 | (torch.isnan(x) & torch.isnan(y))).all())
+           if x.is_floating_point() else torch.equal(x, y)
+           for x, y in zip(out, ref))
+print(json.dumps({"root": cuda_build.build_root(),
+                  "core": core and core._name, "screen": lib._name,
+                  "launches": ce.LAUNCHES["universal"], "bit_equal": same,
+                  "build_s": t_build}))
+"""
+
+
+def phase_surface(tmp, canary_run):
+    """Phase 22: (a) the library surface with jax blocked, and
+    ``dryrun.entry()`` on the card against the JAX package's screen_ok;
+    (b) ``summary()`` of phase 13's engine against its stats and its
+    launches; (c) a copy of the package alone, outside any checkout,
+    with ``HOME`` and ``XDG_CACHE_HOME`` elsewhere, building force_free's
+    kernels and the native core under the user cache directory,
+    launching ``universal`` bit-equal to its plain twin, and writing
+    nothing inside itself.  Returns what each found."""
+    import torch
+
+    import pde_engine_tpu_torch as pkg
+    from pde_engine_tpu_torch import dryrun
+    from pde_engine_tpu_torch.ops import jets, optable, tape
+    from pde_engine_tpu_torch.utils import SearchConfig
+    from pde_engine_tpu_torch.utils.config import SearchConfig as config_sc
+
+    # (a)
+    t0 = time.time()
+    if sys.modules.get("jax") is not None or \
+            sys.modules.get("pde_engine_tpu") is not None:
+        fail("jax or the JAX package was imported")
+    problem = pkg.load_problem("force_free")
+    mods = (jets, optable, tape)
+    if problem.slug != "force_free" or len(problem.known_solutions) != 7 \
+            or SearchConfig is not config_sc or any(
+                m.__name__ != f"pde_engine_tpu_torch.ops.{n}"
+                for m, n in zip(mods, ("jets", "optable", "tape"))):
+        fail(f"library surface: {problem.slug}, {SearchConfig}, {mods}")
+    kernel, args = dryrun.entry()
+    if any(a.device.type != "cuda" for a in args):
+        fail(f"entry() arguments on {[str(a.device) for a in args]}")
+    sr = kernel(*args)
+    ok = tuple(bool(x) for x in sr.screen_ok.cpu())
+    if ok != ENTRY_SCREEN_OK_JAX:
+        fail(f"entry() screen_ok {ok}, the JAX package's {ENTRY_SCREEN_OK_JAX}")
+    kc, ac = dryrun.entry("cpu")
+    ref = kc(*ac)
+    for f in ENTRY_FLAGS:
+        if not torch.equal(getattr(sr, f).cpu(), getattr(ref, f)):
+            fail(f"entry() {f} on the card {getattr(sr, f).tolist()} != "
+                 f"the CPU's {getattr(ref, f).tolist()}")
+    rel = sr.rel_max.cpu().tolist()
+    say(f"  load_problem, utils.SearchConfig, ops.{{jets, optable, tape}} "
+        f"resolve with jax blocked; entry() on the card: screen_ok {ok} "
+        f"(the JAX package's), verdict flags and fingerprints equal to the "
+        f"CPU's, rel_max {', '.join(f'{x:.3e}' for x in rel)}; "
+        f"{time.time() - t0:.1f} s")
+
+    # (b)
+    summ = canary_run["summary"]
+    print("  summary() of phase 13's engine: " + json.dumps(summ),
+          flush=True)
+    stats, lr = canary_run["stats"], canary_run["launched_rows"]
+    want_depths = [{k: st[k] for k in SUMMARY_DEPTH_FIELDS} for st in stats]
+    launched = sum(v["candidates"] for v in lr.values())
+    if summ["depths"] != want_depths:
+        fail(f"summary depths {summ['depths']} != stats {want_depths}")
+    for key, want in (
+            ("total_candidates", sum(st["candidates"] for st in stats)),
+            ("total_unique", sum(st["unique"] for st in stats)),
+            ("total_valid", canary_run["valid_rows"]),
+            ("candidates_screened", canary_run["oracle_rows"] + launched)):
+        if summ[key] != want:
+            fail(f"summary {key} {summ[key]} != {want}")
+    if len(summ["paper_solutions"]) != 7:
+        fail(f"summary paper_solutions {summ['paper_solutions']}")
+    if any(canary_run["timer_rows"][k] != v["rows"] for k, v in lr.items()):
+        fail(f"the launches counted {canary_run['timer_rows']} rows, the "
+             f"engine {lr}")
+    say(f"  summary(): totals equal the stats, 7 knowns, "
+        f"candidates_screened {summ['candidates_screened']:,} = "
+        f"{canary_run['oracle_rows']} oracle rows + {launched:,} launched "
+        f"candidates (rows counted by the launches: "
+        f"{canary_run['timer_rows']}; tiled's include the pad of each "
+        "run's last tile)")
+
+    # (c)
+    t1 = time.time()
+    site = os.path.join(tmp, "p22", "site-packages")
+    home = os.path.join(tmp, "p22", "home")
+    xdg = os.path.join(home, "xdg")
+    shutil.copytree(os.path.dirname(os.path.abspath(pkg.__file__)),
+                    os.path.join(site, "pde_engine_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = tree_digest(site)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(HOME=home, XDG_CACHE_HOME=xdg, PYTHONPATH=site,
+               PYTHONDONTWRITEBYTECODE="1")
+    r = subprocess.run([sys.executable, "-c", _INSTALLED, site,
+                        str(INSTALLED_ROWS)], cwd=os.path.join(tmp, "p22"),
+                       env=env, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"the installed copy failed (exit {r.returncode}):\n"
+             f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    cache = os.path.join(xdg, "pde_engine_tpu_torch")
+    if got["root"] != cache or not got["core"] or any(
+            os.path.dirname(os.path.dirname(got[k])) != cache
+            or not os.path.exists(got[k]) for k in ("core", "screen")):
+        fail(f"the installed copy built {got}, not under {cache}")
+    if not got["bit_equal"] or got["launches"] != 1:
+        fail(f"the installed copy's universal launch: {got}")
+    if tree_digest(site) != before:
+        fail("the installed copy wrote inside itself")
+    say(f"  installed copy (the package alone, HOME and XDG_CACHE_HOME "
+        f"elsewhere): built the native core and force_free's kernels "
+        f"under $XDG_CACHE_HOME/pde_engine_tpu_torch in "
+        f"{got['build_s']:.1f} s, universal at {INSTALLED_ROWS:,} rows "
+        f"bit-equal to its plain twin, nothing written inside the copy; "
+        f"{time.time() - t1:.1f} s")
+    return {"entry_rel_max": rel, "summary": summ, "installed": got}
+
+
 NEEDS = {5: {4}, 6: {4}, 7: {4}, 8: {6}, 10: {4}, 11: {4, 6, 7, 8},
-         12: {4}, 17: {4}}
+         12: {4}, 17: {4}, 22: {13}}
 
 
 def main(argv=None) -> int:
@@ -2757,7 +2965,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: 1-13, "
-                         "18-21; "
+                         "18-22; "
                          "1 and 2 always run; any other set prints no "
                          "result line)")
     args = ap.parse_args(argv)
@@ -2857,7 +3065,12 @@ def main(argv=None) -> int:
         omega_bad = phase_family(OMEGA_TAG, specs[OMEGA_TAG], dev,
                                  BUILD_SEEDS[OMEGA_TAG], omega_problem)
         omega_ms, omega_bounds = build_ms(
-            {t: specs[t] for t in ("force_free", OMEGA_TAG)}, dev)
+            {t: specs[t] for t in ("force_free", OMEGA_TAG)}, dev,
+            load_problem("force_free"))
+        # each order-2 build alone: its own widths and points
+        family_ms = {tag: build_ms({tag: specs[tag]}, dev,
+                                   load_problem(tag))
+                     for tag in FAMILIES}
         end(3)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3106,8 +3319,8 @@ def main(argv=None) -> int:
         if 13 in phases:
             begin(13, "recall canaries: no-audit force_free depth 4 "
                   "through DiscoveryEngine")
-            phases_n["canary"] = phase_canary(card,
-                                              c4 if 4 in phases else None)
+            phases_n["canary"], canary_run = phase_canary(
+                card, c4 if 4 in phases else None)
             end(13)
         depth5 = {}
         for k, audit in ((14, False), (15, True)):
@@ -3164,6 +3377,13 @@ def main(argv=None) -> int:
             configs_run, configs_n = phase_configs(tmp, card, deep)
             phases_n.update(configs_n)
             end(21)
+        surface_run = None
+        if 22 in phases:
+            begin(22, "library surface: load_problem, SearchConfig, ops, "
+                  "dryrun.entry() on the card; summary() of phase 13's "
+                  "engine; an installed copy building in the user cache")
+            surface_run = phase_surface(tmp, canary_run)
+            end(22)
 
     say("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(t_phase.items())}))
@@ -3181,6 +3401,8 @@ def main(argv=None) -> int:
         print(json.dumps({"mesh": mesh_run}), flush=True)
     if configs_run is not None:
         print(json.dumps({"configs": configs_run}), flush=True)
+    if surface_run is not None:
+        print(json.dumps({"surface": surface_run}), flush=True)
     if phases != DEFAULT_PHASES:
         say(f"phases {sorted(phases)} passed in {time.time() - t_all:.1f} "
             "s (a subset: no result line)")
@@ -3231,7 +3453,10 @@ def main(argv=None) -> int:
                   "blocks_per_sm": ce.geometry(specs[tag])[
                       "blocks_per_sm"][k],
                   "packed_and_fp_rows_differ": 0,
-                  "exp_log_jet_rows_differ": family_bad[tag][0]}
+                  "exp_log_jet_rows_differ": family_bad[tag][0],
+                  "ms": family_ms[tag][0][tag][k],
+                  "bound_ms": family_ms[tag][1][tag][k][0],
+                  "bound_by": family_ms[tag][1][tag][k][1]}
             for tag in FAMILIES}
         if families is not None:
             kernels[-1]["family_launches"] = {

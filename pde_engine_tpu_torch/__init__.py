@@ -11,3 +11,10 @@ Nothing here imports jax or ``pde_engine_tpu``.
 """
 
 __version__ = "0.1.0"
+
+
+def load_problem(name: str):
+    """Top-level convenience, as ``pde_engine_tpu.load_problem``: the
+    port's problem of that registry name (``models.load_problem``)."""
+    from .models import load_problem as _lp
+    return _lp(name)

@@ -1,5 +1,9 @@
-"""The multi-device dry run of the port: counterpart of
+"""The driver entry points of the port: counterparts of ``entry`` and
 ``dryrun_multichip`` in the JAX package's ``__graft_entry__.py``.
+
+``entry(device="cuda")`` returns ``(kernel, example_args)``: force_free's
+tape screen (``parallel.search.make_search_kernel_raw`` at 32 nodes) and
+an 8-row batch of its known solutions and ``rho*z``, on the device.
 
     python -m pde_engine_tpu_torch.dryrun 8 --device cpu
     python -m pde_engine_tpu_torch.dryrun 2            # on the card(s)
@@ -39,12 +43,45 @@ from .models import load_problem
 from .parallel import cuda_engine
 from .parallel.incremental import JetCache, OP_INDEX, make_op_kernel_uidrange
 from .parallel.mesh import CandidateMesh
-from .parallel.search import make_search_kernel, snap_fp_jets_np
+from .parallel.search import (make_search_kernel, make_search_kernel_raw,
+                              snap_fp_jets_np)
 from .pipeline import DiscoveryEngine, cuda_emit_spec, resolve_device
 from .runtime import DiscoveryRun
 from .utils.config import SearchConfig
 
 MAX_NODES = 32
+
+
+def example_exprs(problem, n: int):
+    """``n`` expressions: the problem's known solutions and ``rho*z``,
+    cycled."""
+    exprs = list(problem.known_solutions) + ["rho*z"]
+    return (exprs * -(-n // len(exprs)))[:n]
+
+
+def example_batch(problem, exprs):
+    """The tapes of ``exprs`` padded to ``MAX_NODES`` and their lengths."""
+    tapes = [problem.parse(s) for s in exprs]
+    return (np.stack([t.padded(MAX_NODES) for t in tapes]),
+            np.array([len(t) for t in tapes], np.int32))
+
+
+def entry(device="cuda"):
+    """``(kernel, example_args)``: force_free's tape screen at
+    ``MAX_NODES`` nodes and an 8-row batch of its knowns and ``rho*z``,
+    the arguments on ``device`` (``cuda`` without a card raises)."""
+    dev = resolve_device(device)
+    problem = load_problem("force_free")
+    kernel = make_search_kernel_raw(
+        problem.residual_order, MAX_NODES, problem.get_residual_key(),
+        float(problem.screen_rtol), len(problem.screen_points),
+        len(problem.fingerprint_points))
+    tapes, lengths = example_batch(problem, example_exprs(problem, 8))
+    example_args = tuple(torch.as_tensor(a).to(dev) for a in (
+        tapes, lengths, problem.consts.as_array(np.float32),
+        np.asarray(problem.screen_points, np.float32),
+        np.asarray(problem.fingerprint_points, np.float32)))
+    return kernel, example_args
 
 
 def dryrun_mesh(n_devices: int, device="cuda") -> CandidateMesh:
@@ -68,14 +105,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         problem.residual_order, MAX_NODES, problem.get_residual_key(),
         float(problem.screen_rtol), len(problem.screen_points),
         len(problem.fingerprint_points))
-    exprs = list(problem.known_solutions) + ["rho*z"]
-    exprs = (exprs * -(-2 * n_devices // len(exprs)))[:max(
-        2 * n_devices, len(exprs))]
-    tapes = [problem.parse(s) for s in exprs]
-    host = (np.stack([t.padded(MAX_NODES) for t in tapes]),
-            np.array([len(t) for t in tapes], np.int32))
+    exprs = example_exprs(problem, max(2 * n_devices,
+                                       len(problem.known_solutions) + 1))
+    host = example_batch(problem, exprs)
     n_pass = 0
-    for dev, (lo, hi) in zip(mesh.devices, mesh.split(len(tapes))):
+    for dev, (lo, hi) in zip(mesh.devices, mesh.split(len(exprs))):
         if lo == hi:
             continue
         sr = kernel(*(torch.as_tensor(a).to(dev) for a in (

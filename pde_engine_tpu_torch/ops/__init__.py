@@ -1,0 +1,1 @@
+from . import jets, optable, tape  # noqa: F401

@@ -1495,6 +1495,26 @@ class DiscoveryEngine:
         candidates, and ``tiled`` exactly those tiles."""
         return launched_rows_of(self.launch_rows)
 
+    def summary(self) -> Dict:
+        """The run so far, with the JAX engine's ``summary()`` keys: each
+        depth's stats holds the JAX ``DepthStats`` fields (the ingest
+        sections stay in ``self.stats``); ``candidates_screened`` counts
+        the candidates screened, by the float64 oracle at depth 1 (and on
+        the tape engine) and by the kernels after it, and no pad row."""
+        return {
+            "problem": self.problem.slug,
+            "depths": [{k: v for k, v in vars(s).items()
+                        if k != "ingest_sections"} for s in self.stats],
+            "total_candidates": sum(s.candidates for s in self.stats),
+            "total_unique": sum(s.unique for s in self.stats),
+            "total_valid": len(self.valid_rows),
+            "paper_solutions": sorted({r.paper_solution_name
+                                       for r in self.valid_rows
+                                       if r.paper_solution_name}),
+            "device_seconds": self.device_seconds,
+            "candidates_screened": self.candidates_screened,
+        }
+
     # ------------------------------------------------------------------
     # Resume: cache seeding
     # ------------------------------------------------------------------

@@ -1,0 +1,1 @@
+from .config import SearchConfig  # noqa: F401

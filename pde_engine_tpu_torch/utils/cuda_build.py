@@ -4,9 +4,12 @@ Counterpart of the native-core build in ``pde_engine_tpu/utils/native.py``
 and of the JAX compile cache: on first use the CUDA sources in
 ``pde_engine_tpu_torch/csrc/`` are compiled with ``nvcc`` for ``sm_90a``,
 together with the jet-algebra header emitted for the problem
-(``ops/cuda_emit.py``), into ``build/torch_ext/<digest>/``.  The digest
+(``ops/cuda_emit.py``), into ``<build root>/<digest>/``.  The digest
 covers the sources, the emitted header and the compiler flags, so a
 changed kernel or problem builds anew and an unchanged one loads at once.
+The build root (:func:`build_root`) is ``build/torch_ext`` of the
+checkout when the package sits in one, and a user cache directory when
+it is installed (``pip install``: its parent is ``site-packages``).
 
 The library exposes plain ``extern "C"`` launchers taking device pointers,
 sizes and the CUDA stream; it is bound with ``ctypes`` and does not link
@@ -47,11 +50,35 @@ def repo_root() -> str:
     return os.path.dirname(os.path.dirname(_CSRC.rstrip(os.sep)))
 
 
+def _checkout_build_root():
+    """``<checkout>/build/torch_ext`` when the package sits in a checkout
+    of the repository (its parent holds the ``pyproject.toml`` that
+    names the package) and that directory can be created and written;
+    else None."""
+    root = repo_root()
+    try:
+        with open(os.path.join(root, "pyproject.toml")) as f:
+            if "pde_engine_tpu_torch" not in f.read():
+                return None
+        out = os.path.join(root, "build", "torch_ext")
+        os.makedirs(out, exist_ok=True)
+    except OSError:
+        return None
+    return out if os.access(out, os.W_OK) else None
+
+
 def build_root() -> str:
-    """``build/torch_ext`` of the checkout (raises if it cannot be
-    created)."""
-    root = os.path.join(repo_root(), "build", "torch_ext")
-    os.makedirs(root, exist_ok=True)
+    """Where the kernels and the native ingest core build: the checkout's
+    ``build/torch_ext``, else the user cache directory,
+    ``$XDG_CACHE_HOME/pde_engine_tpu_torch`` or
+    ``~/.cache/pde_engine_tpu_torch`` when ``XDG_CACHE_HOME`` is unset
+    (created here; raises if it cannot be)."""
+    root = _checkout_build_root()
+    if root is None:
+        base = (os.environ.get("XDG_CACHE_HOME")
+                or os.path.join(os.path.expanduser("~"), ".cache"))
+        root = os.path.join(base, "pde_engine_tpu_torch")
+        os.makedirs(root, exist_ok=True)
     return root
 
 

@@ -2,9 +2,11 @@
 
 Copy of ``pde_engine_tpu/utils/native.py`` over the port's own copy of the
 C++ source (``pde_engine_tpu_torch/csrc/ingest_core.cpp``).  The core is
-compiled with g++ at first use and cached under ``build/torch_ext/`` keyed
-by a source digest — no pip, no pybind11 (not in the image).  Everything here
-degrades gracefully: if the compiler or libsqlite3 is missing, callers get
+compiled with g++ at first use and cached where the screen kernels build
+(``cuda_build.build_root``: the checkout's ``build/torch_ext/``, or the
+user cache directory of an installed package), keyed by a source digest —
+no pip, no pybind11 (not in the image).  Everything here degrades
+gracefully: if the compiler or libsqlite3 is missing, callers get
 ``None`` from :func:`load_core` and fall back to the pure-Python paths
 (pipeline keeps a dict dedup map and tuple-based row emission), so the
 package works on any host while the native core doubles ingest throughput on
@@ -80,19 +82,17 @@ def load_core() -> Optional[ct.CDLL]:
         _core_tried = True
         if os.environ.get("PDE_ENGINE_NO_NATIVE"):
             return None
-        # the port's own copy of the source, built into the checkout's
-        # build/torch_ext/<digest>/ beside the screen kernels
+        # the port's own copy of the source, built into <build
+        # root>/<digest>/ beside the screen kernels (cuda_build.build_root:
+        # the checkout's build/torch_ext, else the user cache directory)
         src = os.path.join(_package_root(), "csrc", "ingest_core.cpp")
         if not os.path.exists(src):
             return None
         with open(src, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
         from .cuda_build import build_root
-        try:
-            build_dir = os.path.join(build_root(), digest)
-            os.makedirs(build_dir, exist_ok=True)
-        except OSError:
-            return None
+        build_dir = os.path.join(build_root(), digest)
+        os.makedirs(build_dir, exist_ok=True)
         so = os.path.join(build_dir, "libpde_ingest.so")
         if not os.path.exists(so):
             tmp = so + f".tmp{os.getpid()}"

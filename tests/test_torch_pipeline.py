@@ -539,7 +539,8 @@ COPIED = ["ops/optable.py", "ops/jets.py", "ops/jetops.py", "ops/tape.py",
           "models/kerr_small_spin.py", "models/laplace_gs.py",
           "enumerator.py", "validator.py", "utils/config.py",
           "utils/hashing.py", "utils/hostmem.py", "utils/db.py",
-          "utils/certify.py", "utils/monitor.py"]
+          "utils/certify.py", "utils/monitor.py", "utils/__init__.py",
+          "ops/__init__.py"]
 
 
 def _code_of(path):
