@@ -76,7 +76,8 @@ Phases, one line each (any failure exits non-zero):
               rows must equal the candidates;
 7. resume   — a CLI depth-3 run, then ``--resume-run <id> --max-depth
               4``: its depth-4 rows equal phase 4's row for row (id,
-              expression, signature, is_valid);
+              expression, signature, is_valid); its depth-4 stage and
+              ingest sections beside phase 4's;
 8. per-op resume without a jet snapshot — depth 3 with
               ``use_segmented=False, snapshot_jets=False``, resumed to
               depth 4: the cache is rebuilt by replaying composed rows
@@ -101,9 +102,15 @@ Phases, one line each (any failure exits non-zero):
 11. DB-rebuild resume — phase 7's and phase 8's depth-3 runs, copied
               before their resumes and their registry sidecars removed,
               resumed to depth 4 from their DB rows (the structural fast
-              path): the CLI resume with the jet snapshot gives phase
-              4's depth-4 rows, the per-op resume without one phase 6's
-              rows, row for row;
+              path): (a) the CLI resume with the jet snapshot gives phase
+              4's depth-4 rows, (b) the per-op resume without one phase
+              6's rows, row for row; (c) phase 7's run as old as the
+              struct columns (every triple NULL, no sidecar, no jet
+              snapshot), resumed through ``cli.main``: the log's ``parse
+              path`` line with 0 leaves, the cache replay's launches by
+              kind (at least one), phase 4's depth-4 rows row for row;
+              each resumed depth-4 stage and its ingest sections beside
+              the fresh run's;
 12. bench    — ``python -m pde_engine_tpu_torch.bench 3`` (the depth-4
               stream at the default batch) in a process of its own: one
               JSON line with the JAX bench's keys, phase 4's depth-4
@@ -1565,10 +1572,40 @@ def drop_sidecar(d):
     shutil.rmtree(db + ".registry.d")
 
 
-def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
+def ingest_beside(rep, ref, ref_tag="phase 4's", depth=4):
+    """One line: a resumed run's depth-``depth`` stage and ingest
+    sections (PDE_INGEST_TIMERS) beside those of the fresh run ``ref``."""
+    def stage(r):
+        return next(st for st in r["stats"] if st["depth"] == depth)
+    a, f = stage(rep), stage(ref)
+    sa, sf = a.get("ingest_sections") or {}, f.get("ingest_sections") or {}
+    say(f"    depth {depth} resumed / {ref_tag} fresh: stage "
+        f"{a['seconds']:.3f} / {f['seconds']:.3f} s, ingest "
+        f"{a['t_ingest']:.3f} / {f['t_ingest']:.3f} s; "
+        + " ".join(f"{k} {sa.get(k, 0.0):.3f} / {v:.3f}"
+                   for k, v in sf.items()))
+
+
+def null_struct(d, rep):
+    """Make a run's DB as old as the struct columns: every triple NULL."""
+    import sqlite3
+    con = sqlite3.connect(os.path.join(d, "run.db"))
+    table = "expressions_" + rep["run_id"].replace("-", "_")
+    con.execute(f"UPDATE {table} SET struct_op=NULL, struct_a=NULL, "
+                "struct_b=NULL")
+    con.commit()
+    con.close()
+
+
+def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a, d11c):
     """Phase 11: phase 7's and phase 8's depth-3 runs, their registry
-    sidecars removed, resumed to depth 4 from their DB rows."""
+    sidecars removed, resumed to depth 4 from their DB rows; then phase
+    7's run as old as the struct columns (every triple NULL, no jet
+    snapshot), whose rebuild takes the triples from the spellings and
+    replays the cache through the kernels.  Returns the launch counts of
+    (c)'s replay and of its depth 4."""
     from pde_engine_tpu_torch.parallel import cuda_engine as ce
+    from pde_engine_tpu_torch.pipeline import DiscoveryEngine
     drop_sidecar(d11a)
     log = []
     ce.reset_launch_counts()
@@ -1585,9 +1622,10 @@ def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
              f"{counts_of(rep4)}")
     n = same_rows(os.path.join(d4, "run.db"), rep4,
                   os.path.join(d11a, "run.db"), rep, "WHERE depth = 4")
-    say(f"  CLI, jet snapshot: {fast[0].strip()}; depth-4 rows equal phase "
-        f"4's row for row ({n:,} rows); launches {launches}; wall "
+    say(f"  (a) CLI, jet snapshot: {fast[0].strip()}; depth-4 rows equal "
+        f"phase 4's row for row ({n:,} rows); launches {launches}; wall "
         f"{rep['wall_seconds']:.1f} s")
+    ingest_beside(rep, rep4)
     drop_sidecar(d11b)
     log = []
     cfg = dict(use_segmented=False, snapshot_jets=False)
@@ -1599,9 +1637,50 @@ def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a):
         fail(f"per-op DB-rebuild resume: {log[0][:2000]} {seeded}")
     n = same_rows(os.path.join(d6, "run.db"), rep6,
                   os.path.join(d11b, "run.db"), rep)
-    say(f"  per-op, no jet snapshot: {fast[0].strip()}; {seeded['universal']}"
-        f" universal launches replaying the cache; rows equal phase 6's "
-        f"row for row ({n:,} rows); wall {rep['wall_seconds']:.1f} s")
+    say(f"  (b) per-op, no jet snapshot: {fast[0].strip()}; "
+        f"{seeded['universal']} universal launches replaying the cache; "
+        f"rows equal phase 6's row for row ({n:,} rows); wall "
+        f"{rep['wall_seconds']:.1f} s")
+    ingest_beside(rep, rep6, "phase 6's (per-op)")
+    drop_sidecar(d11c)
+    shutil.rmtree(os.path.join(d11c, "run.db.jets.d"))
+    null_struct(d11c, rep7a)
+    seed = DiscoveryEngine.seed_cache_from_uniques
+    replay = {}
+
+    def counted(eng, *a, **kw):
+        before = dict(ce.LAUNCHES)
+        try:
+            return seed(eng, *a, **kw)
+        finally:
+            replay.update({k: ce.LAUNCHES[k] - before[k] for k in before})
+    DiscoveryEngine.seed_cache_from_uniques = counted
+    log = []
+    try:
+        ce.reset_launch_counts()
+        rep = run_cli(["--resume-run", rep7a["run_id"],
+                       "--no-report-families"], d11c, log=log)
+        resumed = {k: v - replay.get(k, 0) for k, v in ce.LAUNCHES.items()}
+    finally:
+        DiscoveryEngine.seed_cache_from_uniques = seed
+    parse = [ln.strip() for ln in log[0].splitlines()
+             if "resume: parse path:" in ln]
+    if not parse or not parse[0].endswith(", 0 as leaves"):
+        fail("the parse-path resume did not re-register every composed "
+             "row from its spelling: " + log[0][:2000])
+    if sum(replay.values()) < 1:
+        fail(f"the parse-path resume's cache replay launched {replay}")
+    if counts_of(rep) != counts_of(rep4):
+        fail(f"parse-path resume counts {counts_of(rep)} != phase 4's "
+             f"{counts_of(rep4)}")
+    n = same_rows(os.path.join(d4, "run.db"), rep4,
+                  os.path.join(d11c, "run.db"), rep, "WHERE depth = 4")
+    say(f"  (c) CLI, struct columns NULL, no jet snapshot: {parse[0]}; "
+        f"replay launches {replay}; depth-4 rows equal phase 4's row for "
+        f"row ({n:,} rows); depth-4 launches {resumed}; wall "
+        f"{rep['wall_seconds']:.1f} s")
+    ingest_beside(rep, rep4)
+    return replay, resumed
 
 
 class DepthLaunches:
@@ -2177,12 +2256,15 @@ def phase_host(tmp, card, c4):
     share of that time in each of the engine's and the runtime's steps,
     those outside the timed sections included.  (b) A depth-3 CLI run
     resumed to depth 4 from four copies, in turns with its DB's
-    secondary indices kept and dropped (dropped: the copy's indices
-    removed and ``RunDB.ensure_indices`` a no-op for the whole resumed
-    run), each with its stage and ingest sections."""
+    secondary indices left to the resume (which drops them before the
+    resumed depth and builds them at completion) and dropped
+    beforehand (the copy's indices removed and ``RunDB.ensure_indices``
+    a no-op for the whole resumed run), each with its stage and ingest
+    sections."""
     import sqlite3
 
     from pde_engine_tpu_torch.pipeline import DiscoveryEngine
+    from pde_engine_tpu_torch.runtime import SECONDARY_INDICES
     from pde_engine_tpu_torch.utils.db import RunDB
     engine_run = DiscoveryEngine.run
 
@@ -2232,7 +2314,7 @@ def phase_host(tmp, card, c4):
         shutil.copytree(d3, dc)
         if drop:
             con = sqlite3.connect(os.path.join(dc, "run.db"))
-            for col in ("norm", "sig", "status", "depth"):
+            for col in SECONDARY_INDICES:
                 con.execute(f"DROP INDEX IF EXISTS idx_{table}_{col}")
             con.commit()
             con.close()
@@ -2245,7 +2327,7 @@ def phase_host(tmp, card, c4):
         if counts_of(rep) != c4:
             fail(f"resume {i}: counts {counts_of(rep)} != {c4}")
         say(f"  resumed 3->4 with the secondary indices "
-            f"{'dropped' if drop else 'kept'}: wall "
+            f"{'dropped beforehand' if drop else 'left to the resume'}: wall "
             f"{rep['wall_seconds']:.1f} s")
         stage_lines(rep, card)
 
@@ -3074,9 +3156,9 @@ def main(argv=None) -> int:
         end(3)
 
     with tempfile.TemporaryDirectory() as tmp:
-        d4, d5, d6, d7, d8, d10, d11a, d11b = (
+        d4, d5, d6, d7, d8, d10, d11a, d11b, d11c = (
             os.path.join(tmp, f"p{k}") for k in (4, 5, 6, 7, 8, 10, "11a",
-                                                 "11b"))
+                                                 "11b", "11c"))
         for d in (d4, d5, d6, d7, d8, d10):
             os.makedirs(d)
         phases_n, timers = {}, {}
@@ -3240,6 +3322,7 @@ def main(argv=None) -> int:
                             d7)
             phases_n["resume_part"] = dict(ce.LAUNCHES)
             shutil.copytree(d7, d11a)   # phase 11's run without a sidecar
+            shutil.copytree(d7, d11c)   # and its run as old as the columns
             ce.reset_launch_counts()
             rep7 = run_cli(["--resume-run", rep7a["run_id"],
                             "--no-report-families"], d7)
@@ -3248,6 +3331,7 @@ def main(argv=None) -> int:
                 fail(f"resumed run {rep7['run_id']} counts "
                      f"{counts_of(rep7)} != phase 4's {c4}")
             stage_lines(rep7, card)
+            ingest_beside(rep7, rep4)
             n7 = same_rows(os.path.join(d4, "run.db"), rep4,
                            os.path.join(d7, "run.db"), rep7,
                            "WHERE depth = 4")
@@ -3306,8 +3390,11 @@ def main(argv=None) -> int:
             end(10)
         if 11 in phases:
             begin(11, "DB-rebuild resume: phases 7's and 8's depth-3 runs "
-                  "without their registry sidecars, resumed to depth 4")
-            phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a)
+                  "without their registry sidecars, resumed to depth 4; "
+                  "phase 7's as old as the struct columns")
+            (phases_n["parse_path_replay"],
+             phases_n["parse_path_resumed"]) = phase_db_resume(
+                d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a, d11c)
             end(11)
         bench_line = None
         if 12 in phases:

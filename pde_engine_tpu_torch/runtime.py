@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .enumerator import Candidate
+from .enumerator import Candidate, wrap_operand
 from .ops import optable as ot
 from .models.base import Problem, load_problem
 from .pipeline import DepthStats, DiscoveryEngine, Row
@@ -689,6 +689,9 @@ class DiscoveryRun:
                     "with the problem it ran (--omega of a rotating "
                     "force_free run)")
             completed = int(state.get("completed_depth", 0))
+            # the rebuild's reads need no secondary index: a file without
+            # them (a cut run) does not build them only to drop them
+            self.db._indices_made = True
             reg = self._load_registry_sidecar()
             if (reg is not None and completed
                     and int(reg["completed_depth"]) == completed):
@@ -703,10 +706,27 @@ class DiscoveryRun:
                     "only the valid rows, so it cannot be resumed")
             else:
                 self._resume_from_db(state, completed)
+            self._drop_secondary_indices()
         except BaseException:
             self.close()
             raise
         return self
+
+    def _drop_secondary_indices(self):
+        """Write the resumed depths as a fresh run writes its depths:
+        without the run table's four secondary indices, which
+        ``complete_run`` builds once at the end (a run that is cut leaves
+        them to its first reader, ``RunDB.rows``).  The reopened file
+        holds them from its completed depth's ``complete_run``, and every
+        reject row of a resumed depth would update four B-trees.  Only
+        the writer holds the file."""
+        if not self.is_writer:
+            return
+        for name in SECONDARY_INDICES:
+            self.db.conn.execute(
+                f"DROP INDEX IF EXISTS idx_{self.db.table}_{name}")
+        self.db.conn.commit()
+        self.db._indices_made = False
 
     def _resume_from_db(self, state, completed: int):
         """Rebuild the engine from the stored rows of the completed
@@ -714,48 +734,34 @@ class DiscoveryRun:
         the re-run of that depth makes them again with the same ids, and
         the DB keeps the stored ones.
 
-        Rows with consecutive ids, the depth-1 rows first and every
-        deeper row carrying its structural triple (``struct_op``, ``a``,
-        ``b``), re-register at array speed (the structural fast path);
-        otherwise every row re-parses with SymPy, as rows of older DBs
-        must.  A re-parsed row is a leaf of the registry (it has no
-        triple), so without a jet snapshot its cache row is rebuilt by
-        the float64 oracle, where the fast path replays composed rows
-        through the kernels.  The dedup map takes each row's key from its
+        Every composed row re-registers from its structural triple
+        (:func:`_struct_columns`: the ``struct_op``, ``a``, ``b`` columns,
+        or, in DBs older than those columns, the triple its spelling
+        names), so the jet cache replays it through the kernels as a
+        fresh run computed it.  Depth-1 rows, and a composed row whose
+        spelling does not invert, re-parse with SymPy and register as
+        leaves.  The dedup map takes each row's key from its
         ``signature`` column.  A jet snapshot is used only if every
         stored row re-registered (uid = id - 1)."""
         rows = (self.db.rows("depth <= ?", (completed,)) if completed
                 else self.db.rows())
         eng = self.engine
-        enum = eng.enumerator
-        fast_k = self._struct_resume_prefix(rows)
-        spelled = ({}, {})      # spelling, wrapped spelling -> uid
-        self._register_parsed(rows[:fast_k] if fast_k else rows, spelled)
-        if fast_k and enum.count_uniques() != fast_k:
-            # a depth-1 row did not re-parse: uids are no longer id - 1,
-            # so the stored triples do not line up
-            self._log("resume: depth-1 prefix incomplete; parse path for "
-                      "the composed rows")
-            self._register_parsed(rows[fast_k:], spelled)
-            fast_k = 0
-        if fast_k:
-            comp = rows[fast_k:]
-            m = len(comp)
-            self._log(f"resume: structural fast path for {m} composed "
-                      f"rows ({fast_k} depth-1 rows parsed)")
-            op_ids = np.fromiter((r["struct_op"] for r in comp), np.int16, m)
-            a_u = np.fromiter((r["struct_a"] for r in comp), np.int32, m)
-            b_u = np.fromiter((-1 if r["struct_b"] is None
-                               else r["struct_b"] for r in comp), np.int32, m)
-            depths = np.fromiter((r["depth"] for r in comp), np.int16, m)
-            enum.register_from_struct(op_ids, a_u, b_u, depths,
-                                      [r["expression"] for r in comp])
-            keys = np.fromiter((_row_key(r) for r in comp), np.uint64, m)
-            eng.fp_to_uid.set_batch(
-                keys, np.arange(fast_k, fast_k + m, dtype=np.int64))
-            eng.n_rows += m
+        depth = np.fromiter((r["depth"] for r in rows), np.int64, len(rows))
+        ids = np.fromiter((r["id"] for r in rows), np.int64, len(rows))
+        op, a, b, spelled = _struct_columns(rows, depth, ids)
+        uid = self._register_rows(rows, op, a, b, depth, ids)
+        n_comp = int(np.count_nonzero(depth > 1))
+        lost = int(np.count_nonzero(uid < 0))
+        leaves = int(np.count_nonzero((depth > 1) & (op < 0))) - lost
+        if spelled or leaves or lost:
+            self._log(f"resume: parse path: {spelled} composed rows "
+                      "re-registered from their spelling, "
+                      f"{leaves} as leaves"
+                      + (f", {lost} rows lost (SymPy cannot parse them)"
+                         if lost else ""))
         else:
-            self._log(f"resume: parse path for {len(rows)} rows")
+            self._log(f"resume: structural fast path for {n_comp} composed "
+                      f"rows ({len(rows) - n_comp} depth-1 rows parsed)")
         for r in rows:
             if r["is_valid"]:
                 eng.valid_rows.append(_valid_row(r))
@@ -781,74 +787,71 @@ class DiscoveryRun:
                      ", no jet snapshot (rows rebuilt by the float64 "
                      "oracle and the kernels)"))
 
-    def _register_parsed(self, rows, spelled):
-        """Register stored rows by re-parsing their expressions
-        (``spelled``: the registered spellings and wrapped spellings,
-        each mapped to its uid, extended here).  The
-        flags are the forward path's: ``has_var`` is structural (a
-        variable's name in the string; a re-parsed tape is
-        SymPy-normalised, and ``log_mul(rho, 1)`` parses to a constant)
-        and ``is_one`` marks only the literal depth-1 constant.  A
-        composed row that SymPy cannot parse (``sqrt(neg(X))`` makes
-        ``I``) re-registers from the op and parents its spelling names
-        (:func:`_triple_of_spelling`), so that no row is lost and every
-        later uid stays ``id - 1``."""
+    def _register_rows(self, rows, op, a, b, depth, ids) -> np.ndarray:
+        """Register the stored ``rows`` in id order and return each row's
+        uid (-1 for a row SymPy cannot parse: it is lost, and the id gap
+        shows in ``id_offset``).  Each run of rows with a triple (``op`` >= 0,
+        parents ``a``, ``b`` as row positions) goes through
+        ``register_from_struct`` at array speed, as the sidecar resume
+        registers them; every other row re-parses as a leaf.  The flags
+        are the forward path's: a composed row's come from its parents,
+        a leaf's ``has_var`` is structural (a variable's name in the
+        string; a re-parsed tape is SymPy-normalised, and ``log_mul(rho,
+        1)`` parses to a constant) and ``is_one`` marks only the literal
+        depth-1 constant."""
         eng = self.engine
         enum = eng.enumerator
         consts = self.problem.consts
         var_pat = re.compile("|".join(rf"\b{re.escape(v)}\b"
                                       for v in self.problem.var_names))
-        raw, wrapped = spelled
-        for r in rows:
-            expr = r["expression"]
-            depth = int(r["depth"])
-            try:
-                cand = Candidate(
-                    tape=self.problem.parse(expr), depth=depth,
-                    expr_str=expr, top_op=_top_op_of(expr),
-                    has_var=bool(var_pat.search(expr)), consts=consts)
-                cand.is_one = (depth == 1
-                               and cand.tape.is_const_one(consts))
-            except Exception:   # noqa: BLE001 - any SymPy parse failure
-                t = _triple_of_spelling(expr, raw, wrapped)
-                if t is None or depth == 1:
-                    continue    # the id gap shows in id_offset
-                op, a, b = (t[0], enum.unique_at(t[1]),
-                            None if t[2] is None else enum.unique_at(t[2]))
-                cand = Candidate(
-                    depth=depth, expr_str=expr, top_op=op,
-                    has_var=a.has_var or (b is not None and b.has_var),
-                    op_name=op, a=a, b=b, consts=consts)
-            u = enum.add_unique(cand)
-            raw.setdefault(expr, u.uid)
-            wrapped.setdefault(u.wrapped, u.uid)
-            eng.fp_to_uid[_row_key(r)] = u.uid
-            eng.n_rows += 1
-            eng.id_offset = max(eng.id_offset,
-                                int(r["id"]) - enum.count_uniques())
-
-    @staticmethod
-    def _struct_resume_prefix(rows) -> int:
-        """The number k of depth-1 rows when the rows qualify for the
-        structural fast path, else 0: ids 1..n in order, the depth-1 rows
-        the id prefix, and every deeper row a triple whose parents are
-        earlier rows (older DBs hold NULLs there)."""
         n = len(rows)
-        k = 0
-        for i, r in enumerate(rows):
-            if int(r["id"]) != i + 1:
-                return 0
-            if int(r["depth"]) == 1:
-                if i != k:          # a depth-1 row after a deeper one
-                    return 0
-                k += 1
+        keys = np.fromiter((_row_key(r) for r in rows), np.uint64, n)
+        uid = np.full(n, -1, np.int64)
+        leaf_at = np.flatnonzero(op < 0)
+        i = 0
+        while i < n:
+            if op[i] < 0:
+                expr = rows[i]["expression"]
+                try:
+                    tape = self.problem.parse(expr)
+                except Exception:   # noqa: BLE001 - any SymPy failure
+                    i += 1
+                    continue
+                u = enum.add_unique(Candidate(
+                    tape=tape, depth=int(depth[i]), expr_str=expr,
+                    top_op=_top_op_of(expr),
+                    has_var=bool(var_pat.search(expr)),
+                    is_one=bool(depth[i] == 1
+                                and tape.is_const_one(consts)),
+                    consts=consts))
+                uid[i] = u.uid
+                eng.fp_to_uid[int(keys[i])] = u.uid
+                eng.n_rows += 1
+                i += 1
                 continue
-            op, a, b = r["struct_op"], r["struct_a"], r["struct_b"]
-            if op is None or a is None or not 0 <= int(a) < i:
-                return 0
-            if b is not None and not 0 <= int(b) < i:
-                return 0
-        return k if 0 < k < n else 0
+            k = np.searchsorted(leaf_at, i)
+            j = int(leaf_at[k]) if k < leaf_at.size else n
+            uid[i:j] = enum.count_uniques() + np.arange(j - i)
+            ua = uid[a[i:j]]
+            ub = np.where(b[i:j] < 0, -1, uid[b[i:j]])
+            lost = np.flatnonzero((ua < 0) | ((b[i:j] >= 0) & (ub < 0)))
+            if lost.size:
+                # a parent did not re-parse: from that row on, re-parse
+                j = i + int(lost[0])
+                uid[j:] = -1
+                op[j] = -1
+            if j > i:
+                enum.register_from_struct(
+                    op[i:j].astype(np.int16), ua[:j - i].astype(np.int32),
+                    ub[:j - i].astype(np.int32),
+                    depth[i:j].astype(np.int16),
+                    [r["expression"] for r in rows[i:j]])
+                eng.fp_to_uid.set_batch(keys[i:j], uid[i:j])
+                eng.n_rows += j - i
+            i = j
+        kept = uid >= 0
+        eng.id_offset = int((ids[kept] - 1 - uid[kept]).max(initial=0))
+        return uid
 
     def _resume_from_registry(self, reg, state, completed: int):
         """Rebuild the engine from the registry sidecar: depth-1 rows
@@ -1145,6 +1148,10 @@ class DiscoveryRun:
         self.db.close()
 
 
+# the suffixes of the run table's secondary indices (``idx_<table>_<name>``,
+# ``RunDB.ensure_indices``)
+SECONDARY_INDICES = ("norm", "sig", "status", "depth")
+
 # the generator-state flags that decide which expressions a run
 # enumerates, each with the CLI flag that turns it off
 RECORDED_FLAGS = (("include_special_ops", "--no-special-ops"),
@@ -1212,6 +1219,45 @@ def _valid_row(r) -> Row:
                validator_method=r["validator_method"] or "",
                is_paper_solution=bool(r["is_paper_solution"]),
                paper_solution_name=r["paper_solution_name"])
+
+
+def _struct_columns(rows, depth, ids):
+    """(op, a, b, spelled) of stored rows in id order (``depth``,
+    ``ids``: their columns as arrays): for each composed
+    row its op id (the ``ALL_SURFACE_OPS`` order the forward path stores)
+    and its parents as row positions (b -1 for a unary op), from its
+    ``struct_op``, ``a``, ``b`` columns where present, else from its
+    spelling over the rows before it (:func:`_triple_of_spelling`); op -1
+    for a depth-1 row and for a row neither gives a triple.  ``spelled``
+    counts the triples taken from spellings.  The columns hold the
+    writer's uids, which are row positions only where the ids run 1..n
+    (an older resume that lost rows leaves gaps)."""
+    n = len(rows)
+
+    def col(name):
+        return np.fromiter((-1 if r[name] is None else r[name]
+                            for r in rows), np.int64, n)
+    op, a, b = col("struct_op"), col("struct_a"), col("struct_b")
+    pos = np.arange(n)
+    ok = ((depth > 1) & (op >= 0) & (a >= 0) & (a < pos) & (b < pos)
+          & bool(np.array_equal(ids, pos + 1)))
+    op[~ok], a[~ok], b[~ok] = -1, -1, -1
+    todo = np.flatnonzero(~ok & (depth > 1))
+    if not todo.size:
+        return op, a, b, 0
+    op_id = {name: i for i, name in enumerate(ot.ALL_SURFACE_OPS)}
+    raw, wrapped = {}, {}
+    for i, r in enumerate(rows[:int(todo[-1]) + 1]):
+        s = r["expression"]
+        if op[i] < 0 and depth[i] > 1:
+            t = _triple_of_spelling(s, raw, wrapped)
+            if t is not None:
+                op[i], a[i] = op_id[t[0]], t[1]
+                b[i] = -1 if t[2] is None else t[2]
+        raw.setdefault(s, i)
+        wrapped.setdefault(wrap_operand(s), i)
+    spelled = int(np.count_nonzero(op[todo] >= 0))
+    return op, a, b, spelled
 
 
 def _triple_of_spelling(expr: str, raw: Dict[str, int],

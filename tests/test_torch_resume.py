@@ -13,6 +13,7 @@ row ids, expressions, signatures and verdicts.
 """
 
 import os
+import sqlite3
 
 import numpy as np
 import pytest
@@ -34,9 +35,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _run(db, depth, **cfg):
-    return DiscoveryRun("laplace", config=SearchConfig(max_depth=depth,
-                                                       **cfg),
+def _run(db, depth, problem="laplace", **cfg):
+    return DiscoveryRun(problem, config=SearchConfig(max_depth=depth,
+                                                     **cfg),
                         db_path=str(db), device="cpu", verbose=False,
                         report_families=False)
 
@@ -260,6 +261,14 @@ def test_resume_without_sidecar_raises(tmp_path):
         _resume(db, rid, 3, audit_rejects=False)
 
 
+def _columns_of(rows):
+    """``runtime._struct_columns`` of stored rows."""
+    from pde_engine_tpu_torch.runtime import _struct_columns
+    return _struct_columns(
+        rows, np.array([r["depth"] for r in rows], np.int64),
+        np.array([r["id"] for r in rows], np.int64))
+
+
 def _drop_sidecar(db):
     import shutil
     os.remove(db + ".registry.npz")
@@ -275,7 +284,6 @@ def test_db_rebuild_resume_matches_fresh(tmp_path, capsys, snapshot_jets,
     the cache from the jet snapshot, or without one from the float64
     oracle (leaves) and the kernels (composed rows).  Laplace 3 -> 4
     equals a fresh depth-4 run row for row, reject rows included."""
-    from pde_engine_tpu_torch.runtime import DiscoveryRun as Run
     cfg = dict(snapshot_jets=snapshot_jets, use_segmented=use_segmented)
     fresh = _run(tmp_path / "fresh.db", 4, **cfg)
     frep = fresh.run(4)
@@ -283,7 +291,8 @@ def test_db_rebuild_resume_matches_fresh(tmp_path, capsys, snapshot_jets,
     part = _run(db, 3, **cfg)
     part.run(3)
     rid = part.run_id
-    assert Run._struct_resume_prefix(part.db.rows()) == 4
+    op, _, _, spelled = _columns_of(part.db.rows())
+    assert spelled == 0 and int((op >= 0).sum()) == 1874
     part.close()
     _drop_sidecar(db)
     capsys.readouterr()
@@ -319,16 +328,23 @@ def _registry(run):
         id_offset=eng.id_offset, cache_n=eng.cache.n)
 
 
+def _null_struct(db, table):
+    """Make a DB as old as the struct columns: every triple NULL."""
+    con = sqlite3.connect(db)
+    con.execute(f"UPDATE {table} SET struct_op=NULL, struct_a=NULL, "
+                "struct_b=NULL")
+    con.commit()
+    con.close()
+
+
 def test_db_rebuild_parse_path_same_registry(tmp_path, capsys):
     """A DB whose rows carry no structural triple (older DBs: the struct
-    columns NULL) re-parses every row with SymPy and rebuilds the same
-    registry as the structural fast path: uids, expressions, dedup keys,
-    depths, pruning flags and valid rows.  Laplace's depth-3
-    ``sqrt(neg(X))`` makes SymPy's ``I`` and does not re-parse; it
-    re-registers from the op and parents its spelling names, so no uid
-    shifts (``id_offset`` 0)."""
+    columns NULL) takes every composed row's triple from its spelling and
+    rebuilds the same registry as the structural fast path: uids,
+    expressions, dedup keys, depths, pruning flags and valid rows.
+    Laplace's depth-3 ``sqrt(neg(X))`` makes SymPy's ``I``; it needs no
+    parse, so no uid shifts (``id_offset`` 0)."""
     import shutil
-    import sqlite3
     cfg = dict(snapshot_jets=False)
     db = str(tmp_path / "a.db")
     part = _run(db, 3, **cfg)
@@ -338,14 +354,11 @@ def test_db_rebuild_parse_path_same_registry(tmp_path, capsys):
     _drop_sidecar(db)
     nulls = str(tmp_path / "b.db")
     shutil.copy(db, nulls)
-    con = sqlite3.connect(nulls)
-    con.execute(f"UPDATE {table} SET struct_op=NULL, struct_a=NULL, "
-                "struct_b=NULL")
-    con.commit()
-    con.close()
+    _null_struct(nulls, table)
     regs = []
     for path, what in ((db, "resume: structural fast path for 1874 "),
-                       (nulls, "resume: parse path for 1878 rows")):
+                       (nulls, "resume: parse path: 1874 composed rows "
+                        "re-registered from their spelling, 0 as leaves")):
         capsys.readouterr()
         res = DiscoveryRun.resume("laplace", rid,
                                   config=SearchConfig(max_depth=4, **cfg),
@@ -357,6 +370,251 @@ def test_db_rebuild_parse_path_same_registry(tmp_path, capsys):
     fast, parsed = regs
     assert parsed == fast
     assert fast["n"] == 1878 and fast["id_offset"] == 0
+
+
+@pytest.mark.parametrize("problem,d0,use_segmented,tamper", [
+    ("laplace", 3, True, False), ("laplace", 3, False, False),
+    ("force_free", 2, True, False), ("force_free", 2, False, False),
+    ("laplace", 2, True, True)])
+def test_parse_path_resume_equals_fresh(tmp_path, capsys, problem, d0,
+                                        use_segmented, tamper):
+    """A DB as old as the struct columns (every triple NULL), without its
+    registry sidecar and without a jet snapshot, resumes one depth
+    deeper with a fresh run's rows, row for row (id, expression,
+    signature, verdict): every composed row re-registers from its
+    spelling, and the cache replays it through the kernels of the run's
+    own routing (on the CPU their plain twins), as the fresh run
+    computed it.  Tampered, one composed row of the last stored depth no
+    longer inverts: it re-parses as a leaf (its cache row from the
+    float64 oracle) and no uid shifts."""
+    cfg = dict(snapshot_jets=False, use_segmented=use_segmented)
+    d1 = d0 + 1
+    fresh = _run(tmp_path / "fresh.db", d1, problem, **cfg)
+    frep = fresh.run(d1)
+    db = str(tmp_path / "part.db")
+    part = _run(db, d0, problem, **cfg)
+    part.run(d0)
+    rid, table = part.run_id, part.db.table
+    part.close()
+    _drop_sidecar(db)
+    assert not os.path.exists(db + ".jets.d")
+    _null_struct(db, table)
+    con = sqlite3.connect(db)
+    stored = con.execute(f"SELECT id, expression FROM {table} WHERE "
+                         "depth = ? ORDER BY id", (d0,)).fetchall()
+    n_composed = con.execute(f"SELECT COUNT(*) FROM {table} WHERE "
+                             "depth > 1").fetchone()[0]
+    n_stored = con.execute(f"SELECT COUNT(*) FROM {table}").fetchone()[0]
+    if tamper:
+        # "1*" + an operand: SymPy parses it, no op spells it
+        tid, texpr = stored[len(stored) // 2]
+        con.execute(f"UPDATE {table} SET expression=? WHERE id=?",
+                    ("1*" + texpr, tid))
+        con.commit()
+    con.close()
+    capsys.readouterr()
+    res = DiscoveryRun.resume(problem, rid,
+                              config=SearchConfig(max_depth=d1, **cfg),
+                              db_path=db, device="cpu", verbose=True,
+                              report_families=False)
+    log = capsys.readouterr().out
+    eng = res.engine
+    enum = eng.enumerator
+    registered, id_offset = enum.count_uniques(), eng.id_offset
+    leaves = [u for u in range(n_stored)
+              if enum.u_op[u] < 0 and enum.u_depth[u] > 1]
+    rrep = res.continue_run(d1)
+    if not tamper:
+        # first the measure of a miss: counts and keys of the new depth
+        fk, rk = ({r[2] for r in _rows(run, f"depth = {d1}")}
+                  for run in (fresh, res))
+        assert rrep["by_depth"] == frep["by_depth"] and fk == rk, (
+            f"depth {d1}: resumed {rrep['by_depth'][str(d1)]} against "
+            f"fresh {frep['by_depth'][str(d1)]}; {len(fk - rk)} of the "
+            f"fresh run's keys missing, {len(rk - fk)} keys it lacks")
+    m = int(tamper)
+    assert (f"resume: parse path: {n_composed - m} composed rows "
+            f"re-registered from their spelling, {m} as leaves") in log
+    assert registered == n_stored and id_offset == 0
+    if tamper:
+        assert leaves == [tid - 1]
+        assert enum.expr_str_of(tid - 1) == "1*" + texpr
+        # the resumed depth's ids follow the stored rows, as fresh
+        ids = [r[0] for r in _rows(res, f"depth = {d1}")]
+        assert min(ids) == n_stored + 1
+        assert max(ids) == n_stored + len(ids)
+    else:
+        assert leaves == []
+        assert frep["by_depth"][str(d1)]["valid"] > 0
+        assert _rows(res) == _rows(fresh)
+    fresh.close()
+    res.close()
+
+
+def test_db_rebuild_loses_an_unparseable_row(tmp_path, capsys):
+    """A stored composed row that neither its columns nor its spelling
+    nor SymPy can rebuild is lost: its id gap shows in ``id_offset``,
+    the rows whose stored triples name it re-parse as leaves, and every
+    other row keeps its triple under the shifted uids."""
+    from pde_engine_tpu_torch.models import load_problem
+    db = str(tmp_path / "a.db")
+    part = _run(db, 3, snapshot_jets=False)
+    part.run(3)
+    rid, table = part.run_id, part.db.table
+    part.close()
+    _drop_sidecar(db)
+    con = sqlite3.connect(db)
+    parse = load_problem("laplace").parse
+
+    def children_of(uid):
+        return con.execute(f"SELECT id, expression FROM {table} WHERE "
+                           "struct_a = ? OR struct_b = ?",
+                           (uid, uid)).fetchall()
+
+    def parses(expr):
+        try:
+            parse(expr)
+        except Exception:   # noqa: BLE001 - any SymPy failure
+            return False
+        return True
+    # a depth-2 row whose children all re-parse without it
+    uid, children = next(
+        (u, c) for u, in con.execute(f"SELECT id - 1 FROM {table} WHERE "
+                                     "depth = 2 ORDER BY id")
+        for c in [children_of(u)] if c and all(parses(e) for _, e in c))
+    n = con.execute(f"SELECT COUNT(*) FROM {table}").fetchone()[0]
+    con.execute(f"UPDATE {table} SET expression='((', struct_op=NULL, "
+                "struct_a=NULL, struct_b=NULL WHERE id=?", (uid + 1,))
+    con.commit()
+    con.close()
+    capsys.readouterr()
+    res = DiscoveryRun.resume("laplace", rid,
+                              config=SearchConfig(max_depth=4,
+                                                  snapshot_jets=False),
+                              db_path=db, device="cpu", verbose=True,
+                              report_families=False)
+    assert ("resume: parse path: 0 composed rows re-registered from "
+            f"their spelling, {len(children)} as leaves, 1 rows lost"
+            in capsys.readouterr().out)
+    enum = res.engine.enumerator
+    assert enum.count_uniques() == n - 1 and res.engine.id_offset == 1
+    # each row after the lost one sits one uid lower
+    leaves = [u for u in range(n - 1)
+              if enum.u_op[u] < 0 and enum.u_depth[u] > 1]
+    assert leaves == [i - 2 for i, _ in children]
+    assert enum.expr_str_of(n - 2) == res.db.rows("id = ?", (n,))[0][
+        "expression"]
+    res.close()
+
+
+def test_struct_columns_from_spelling_hazards():
+    """The triples a row's spelling gives, over the rows before it:
+    infix formats over wrapped operands (a depth-1 ``1 - x`` is
+    ``(1 - x)`` there, bare inside a unary op), commas inside an
+    operand, a spelling that two rows share (the first one names it),
+    and the stored columns, taken as they are where the ids run 1..n.
+    A row that no spelling inverts is a leaf (op -1)."""
+    from pde_engine_tpu_torch.ops import optable as ot
+    names = list(ot.ALL_SURFACE_OPS)
+    binary = next(n for n in names if n not in ot.UNARY_OPS
+                  and n not in ot.SURFACE_FORMAT)
+    nested = f"{binary}(inv(x), {binary}(x, y))"
+    spellings = [
+        ("x", 1), ("y", 1), ("1 - x", 1),
+        ("inv(x)", 2), ("inv(x)", 2),           # 3, 4: one spelling
+        (f"{binary}(x, y)", 2), ("inv(1 - x)", 2),
+        (nested, 3),                            # 7: a comma inside b
+        ("((1 - x) * inv(1 - x))", 3),          # 8: wrapped and raw
+        ("(inv(x) + (x + 1))", 3),              # 9: no such operand
+        ("1*inv(x)", 3)]                        # 10: no such op
+    rows = [dict(id=i + 1, expression=e, depth=d, struct_op=None,
+                 struct_a=None, struct_b=None)
+            for i, (e, d) in enumerate(spellings)]
+    op, a, b, spelled = _columns_of(rows)
+    inv, bi = names.index("inv"), names.index(binary)
+    assert op.tolist() == [-1, -1, -1, inv, inv, bi, inv, bi,
+                           names.index("mul"), -1, -1]
+    assert a.tolist() == [-1, -1, -1, 0, 0, 0, 2, 3, 2, -1, -1]
+    assert b.tolist() == [-1, -1, -1, -1, -1, 1, -1, 5, 6, -1, -1]
+    assert spelled == 6
+    # stored columns are taken where present, and only where ids run 1..n
+    rows[7].update(struct_op=bi, struct_a=4, struct_b=5)
+    op, a, _, spelled = _columns_of(rows)
+    assert (op[7], a[7], spelled) == (bi, 4, 5)
+    gap = [dict(r, id=r["id"] + (r["id"] > 4)) for r in rows]
+    op, a, _, spelled = _columns_of(gap)
+    assert (op[7], a[7], spelled) == (bi, 3, 6)
+
+
+def _indices(db, table):
+    """The run table's secondary indices in the file, read through a
+    connection of their own."""
+    con = sqlite3.connect(db)
+    names = {r[0] for r in con.execute(
+        "SELECT name FROM sqlite_master WHERE type='index' AND "
+        "tbl_name=? AND name LIKE 'idx_%'", (table,))}
+    con.close()
+    return names
+
+
+@pytest.mark.parametrize("rebuild", ["sidecar", "db"])
+def test_resumed_depth_written_without_secondary_indices(tmp_path,
+                                                          rebuild):
+    """A resumed depth is written as a fresh one is: without the four
+    secondary indices its reopened file holds, which the completion
+    builds once.  A resume cut inside the depth leaves a file without
+    them, and its first ``RunDB.rows`` builds them.  On the registry
+    sidecar and on the DB rebuild, the resumed rows equal a fresh run's
+    row for row."""
+    from pde_engine_tpu_torch.runtime import SECONDARY_INDICES
+    from pde_engine_tpu_torch.utils.db import RunDB
+    fresh = _run(tmp_path / "fresh.db", 3)
+    fresh.run(3)
+    db = str(tmp_path / "part.db")
+    part = _run(db, 2)
+    part.run(2)
+    rid, table = part.run_id, part.db.table
+    part.close()
+    made = {f"idx_{table}_{k}" for k in SECONDARY_INDICES}
+    assert _indices(db, table) == made
+    if rebuild == "db":
+        _drop_sidecar(db)
+
+    cut = _resume(db, rid, 3)
+    eng = cut.engine
+    flush = eng._flush_gray
+
+    def killed(depth, st, on_row=None):
+        flush(depth, st, on_row)
+        raise RuntimeError("cut")
+    eng._flush_gray = killed
+    with pytest.raises(RuntimeError, match="cut"):
+        cut.continue_run(3)
+    cut.close()
+    assert _indices(db, table) == set()
+    con = sqlite3.connect(db)
+    assert con.execute(f"SELECT COUNT(*) FROM {table} WHERE depth = 3"
+                       ).fetchone()[0] > 0
+    con.close()
+    reader = RunDB(db, rid)
+    reader.rows("depth = 1")
+    reader.close()
+    assert _indices(db, table) == made
+
+    res = _resume(db, rid, 3)
+    seen = []
+    save = res.db.save_generator_state
+
+    def at_barrier(state):
+        seen.append((state["completed_depth"], _indices(db, table)))
+        save(state)
+    res.db.save_generator_state = at_barrier
+    res.continue_run(3)
+    assert seen == [(3, set())]
+    assert _indices(db, table) == made
+    assert _rows(res) == _rows(fresh)
+    fresh.close()
+    res.close()
 
 
 def test_triple_of_spelling_inverts_the_forward_spelling(tmp_path):
