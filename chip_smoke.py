@@ -2264,7 +2264,6 @@ def phase_host(tmp, card, c4):
     import sqlite3
 
     from pde_engine_tpu_torch.pipeline import DiscoveryEngine
-    from pde_engine_tpu_torch.runtime import SECONDARY_INDICES
     from pde_engine_tpu_torch.utils.db import RunDB
     engine_run = DiscoveryEngine.run
 
@@ -2314,8 +2313,11 @@ def phase_host(tmp, card, c4):
         shutil.copytree(d3, dc)
         if drop:
             con = sqlite3.connect(os.path.join(dc, "run.db"))
-            for col in SECONDARY_INDICES:
-                con.execute(f"DROP INDEX IF EXISTS idx_{table}_{col}")
+            for name, in con.execute(
+                    "SELECT name FROM sqlite_master WHERE type='index' "
+                    "AND tbl_name=? AND name LIKE 'idx_%'",
+                    (table,)).fetchall():
+                con.execute(f"DROP INDEX {name}")
             con.commit()
             con.close()
             RunDB.ensure_indices = lambda self: None

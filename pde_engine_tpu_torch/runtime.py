@@ -24,6 +24,7 @@ resume merges, in as many processes or in one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -689,44 +690,51 @@ class DiscoveryRun:
                     "with the problem it ran (--omega of a rotating "
                     "force_free run)")
             completed = int(state.get("completed_depth", 0))
-            # the rebuild's reads need no secondary index: a file without
-            # them (a cut run) does not build them only to drop them
-            self.db._indices_made = True
-            reg = self._load_registry_sidecar()
-            if (reg is not None and completed
-                    and int(reg["completed_depth"]) == completed):
-                self._resume_from_registry(reg, state, completed)
-            elif state.get("audit_rejects") is False:
-                # the DB holds only the valid rows: a rebuild from it would
-                # under-enumerate every deeper depth without a word
-                raise RuntimeError(
-                    f"run {run_id} was recorded with audit_rejects=False "
-                    "and has no registry sidecar for its completed depth "
-                    f"{completed} ({self._registry_path}): its DB holds "
-                    "only the valid rows, so it cannot be resumed")
-            else:
-                self._resume_from_db(state, completed)
-            self._drop_secondary_indices()
+            with self._secondary_indices_dropped():
+                reg = self._load_registry_sidecar()
+                if (reg is not None and completed
+                        and int(reg["completed_depth"]) == completed):
+                    self._resume_from_registry(reg, state, completed)
+                elif state.get("audit_rejects") is False:
+                    # the DB holds only the valid rows: a rebuild from it
+                    # would under-enumerate every deeper depth without a
+                    # word
+                    raise RuntimeError(
+                        f"run {run_id} was recorded with "
+                        "audit_rejects=False and has no registry sidecar "
+                        f"for its completed depth {completed} "
+                        f"({self._registry_path}): its DB holds only the "
+                        "valid rows, so it cannot be resumed")
+                else:
+                    self._resume_from_db(state, completed)
         except BaseException:
             self.close()
             raise
         return self
 
-    def _drop_secondary_indices(self):
-        """Write the resumed depths as a fresh run writes its depths:
-        without the run table's four secondary indices, which
-        ``complete_run`` builds once at the end (a run that is cut leaves
-        them to its first reader, ``RunDB.rows``).  The reopened file
-        holds them from its completed depth's ``complete_run``, and every
-        reject row of a resumed depth would update four B-trees.  Only
-        the writer holds the file."""
-        if not self.is_writer:
-            return
-        for name in SECONDARY_INDICES:
-            self.db.conn.execute(
-                f"DROP INDEX IF EXISTS idx_{self.db.table}_{name}")
-        self.db.conn.commit()
-        self.db._indices_made = False
+    @contextlib.contextmanager
+    def _secondary_indices_dropped(self):
+        """Rebuild the run in the body, then write the resumed depths as
+        a fresh run writes its depths: without the run table's secondary
+        indices.  ``RunDB.ensure_indices`` owns them: it builds them at
+        ``complete_run`` and at any read while ``_indices_made`` is
+        False.  The rebuild's reads pass them by (a cut run's file does
+        not build them only to drop them); then the writer drops those
+        the reopened file holds, since every reject row of a resumed
+        depth would update each of them, and leaves them to
+        ``complete_run`` (for a run that is cut, to its first reader).
+        Only the writer holds the file."""
+        db = self.db
+        db._indices_made = True
+        yield
+        if self.is_writer:
+            for name, in db.conn.execute(
+                    "SELECT name FROM sqlite_master WHERE type='index' "
+                    "AND tbl_name=? AND name LIKE 'idx_%'",
+                    (db.table,)).fetchall():
+                db.conn.execute(f"DROP INDEX {name}")
+            db.conn.commit()
+        db._indices_made = False
 
     def _resume_from_db(self, state, completed: int):
         """Rebuild the engine from the stored rows of the completed
@@ -735,24 +743,23 @@ class DiscoveryRun:
         the DB keeps the stored ones.
 
         Every composed row re-registers from its structural triple
-        (:func:`_struct_columns`: the ``struct_op``, ``a``, ``b`` columns,
-        or, in DBs older than those columns, the triple its spelling
-        names), so the jet cache replays it through the kernels as a
-        fresh run computed it.  Depth-1 rows, and a composed row whose
-        spelling does not invert, re-parse with SymPy and register as
-        leaves.  The dedup map takes each row's key from its
-        ``signature`` column.  A jet snapshot is used only if every
-        stored row re-registered (uid = id - 1)."""
+        (:func:`_struct_columns`: the ``struct_op``, ``a``, ``b`` columns
+        where they spell the row, else, as in DBs older than those
+        columns, the triple its spelling names), so the jet cache replays
+        it through the kernels as a fresh run computed it.  Depth-1 rows,
+        and a composed row whose spelling does not invert, re-parse with
+        SymPy and register as leaves.  The dedup map takes each row's key
+        from its ``signature`` column.  A jet snapshot is used only if
+        every stored row re-registered (uid = id - 1)."""
         rows = (self.db.rows("depth <= ?", (completed,)) if completed
                 else self.db.rows())
         eng = self.engine
         depth = np.fromiter((r["depth"] for r in rows), np.int64, len(rows))
         ids = np.fromiter((r["id"] for r in rows), np.int64, len(rows))
-        op, a, b, spelled = _struct_columns(rows, depth, ids)
-        uid = self._register_rows(rows, op, a, b, depth, ids)
+        op, a, b, spelled = _struct_columns(rows, depth)
+        uid, leaves = self._register_rows(rows, op, a, b, depth, ids)
         n_comp = int(np.count_nonzero(depth > 1))
         lost = int(np.count_nonzero(uid < 0))
-        leaves = int(np.count_nonzero((depth > 1) & (op < 0))) - lost
         if spelled or leaves or lost:
             self._log(f"resume: parse path: {spelled} composed rows "
                       "re-registered from their spelling, "
@@ -787,18 +794,19 @@ class DiscoveryRun:
                      ", no jet snapshot (rows rebuilt by the float64 "
                      "oracle and the kernels)"))
 
-    def _register_rows(self, rows, op, a, b, depth, ids) -> np.ndarray:
+    def _register_rows(self, rows, op, a, b, depth, ids):
         """Register the stored ``rows`` in id order and return each row's
         uid (-1 for a row SymPy cannot parse: it is lost, and the id gap
-        shows in ``id_offset``).  Each run of rows with a triple (``op`` >= 0,
-        parents ``a``, ``b`` as row positions) goes through
+        shows in ``id_offset``) and the number of composed rows
+        registered as leaves.  Each run of rows with a triple (``op`` >=
+        0, parents ``a``, ``b`` as row positions) goes through
         ``register_from_struct`` at array speed, as the sidecar resume
-        registers them; every other row re-parses as a leaf.  The flags
-        are the forward path's: a composed row's come from its parents,
-        a leaf's ``has_var`` is structural (a variable's name in the
-        string; a re-parsed tape is SymPy-normalised, and ``log_mul(rho,
-        1)`` parses to a constant) and ``is_one`` marks only the literal
-        depth-1 constant."""
+        registers them; every other row, and a row whose parent was
+        lost, re-parses as a leaf.  The flags are the forward path's: a
+        composed row's come from its parents, a leaf's ``has_var`` is
+        structural (a variable's name in the string; a re-parsed tape is
+        SymPy-normalised, and ``log_mul(rho, 1)`` parses to a constant)
+        and ``is_one`` marks only the literal depth-1 constant."""
         eng = self.engine
         enum = eng.enumerator
         consts = self.problem.consts
@@ -807,10 +815,12 @@ class DiscoveryRun:
         n = len(rows)
         keys = np.fromiter((_row_key(r) for r in rows), np.uint64, n)
         uid = np.full(n, -1, np.int64)
-        leaf_at = np.flatnonzero(op < 0)
+        parsed = np.zeros(n, bool)
+        leaf = op < 0
+        leaf_at = np.flatnonzero(leaf)
         i = 0
         while i < n:
-            if op[i] < 0:
+            if leaf[i]:
                 expr = rows[i]["expression"]
                 try:
                     tape = self.problem.parse(expr)
@@ -825,6 +835,7 @@ class DiscoveryRun:
                                 and tape.is_const_one(consts)),
                     consts=consts))
                 uid[i] = u.uid
+                parsed[i] = True
                 eng.fp_to_uid[int(keys[i])] = u.uid
                 eng.n_rows += 1
                 i += 1
@@ -839,7 +850,8 @@ class DiscoveryRun:
                 # a parent did not re-parse: from that row on, re-parse
                 j = i + int(lost[0])
                 uid[j:] = -1
-                op[j] = -1
+                leaf[j] = True
+                leaf_at = np.insert(leaf_at, k, j)
             if j > i:
                 enum.register_from_struct(
                     op[i:j].astype(np.int16), ua[:j - i].astype(np.int32),
@@ -851,7 +863,7 @@ class DiscoveryRun:
             i = j
         kept = uid >= 0
         eng.id_offset = int((ids[kept] - 1 - uid[kept]).max(initial=0))
-        return uid
+        return uid, int(np.count_nonzero(parsed & (depth > 1)))
 
     def _resume_from_registry(self, reg, state, completed: int):
         """Rebuild the engine from the registry sidecar: depth-1 rows
@@ -1148,10 +1160,6 @@ class DiscoveryRun:
         self.db.close()
 
 
-# the suffixes of the run table's secondary indices (``idx_<table>_<name>``,
-# ``RunDB.ensure_indices``)
-SECONDARY_INDICES = ("norm", "sig", "status", "depth")
-
 # the generator-state flags that decide which expressions a run
 # enumerates, each with the CLI flag that turns it off
 RECORDED_FLAGS = (("include_special_ops", "--no-special-ops"),
@@ -1221,43 +1229,68 @@ def _valid_row(r) -> Row:
                paper_solution_name=r["paper_solution_name"])
 
 
-def _struct_columns(rows, depth, ids):
-    """(op, a, b, spelled) of stored rows in id order (``depth``,
-    ``ids``: their columns as arrays): for each composed
-    row its op id (the ``ALL_SURFACE_OPS`` order the forward path stores)
-    and its parents as row positions (b -1 for a unary op), from its
-    ``struct_op``, ``a``, ``b`` columns where present, else from its
-    spelling over the rows before it (:func:`_triple_of_spelling`); op -1
-    for a depth-1 row and for a row neither gives a triple.  ``spelled``
-    counts the triples taken from spellings.  The columns hold the
-    writer's uids, which are row positions only where the ids run 1..n
-    (an older resume that lost rows leaves gaps)."""
+def _struct_columns(rows, depth):
+    """(op, a, b, spelled) of stored rows in id order (``depth``: their
+    column as an array): for each composed row its op id (the
+    ``ALL_SURFACE_OPS`` order the forward path stores) and its parents as
+    row positions (b -1 for a unary op); op -1 for a depth-1 row and for
+    a row no triple spells.  The ``struct_op``, ``a``, ``b`` columns hold
+    the writer's uids, which are row positions only if the writer had
+    re-registered every row before (a resume that lost a row, in the
+    port or in the JAX package, writes shifted uids), so a stored triple
+    is taken only where its parents at those positions spell the row
+    (:func:`_spelling`).  Every other composed row, and every row of a DB
+    older than the columns, takes the triple its spelling names over the
+    rows before it (:func:`_triple_of_spelling`); ``spelled`` counts
+    those."""
     n = len(rows)
 
     def col(name):
         return np.fromiter((-1 if r[name] is None else r[name]
                             for r in rows), np.int64, n)
     op, a, b = col("struct_op"), col("struct_a"), col("struct_b")
+    names = list(ot.ALL_SURFACE_OPS)
+    exprs = [r["expression"] for r in rows]
     pos = np.arange(n)
-    ok = ((depth > 1) & (op >= 0) & (a >= 0) & (a < pos) & (b < pos)
-          & bool(np.array_equal(ids, pos + 1)))
+    ok = ((depth > 1) & (op >= 0) & (op < len(names)) & (a >= 0)
+          & (a < pos) & (b < pos))
+    wrapped = [wrap_operand(s) if d == 1 else s
+               for s, d in zip(exprs, depth.tolist())]
+    for i, o, ai, bi in zip(*(x[ok].tolist() for x in (pos, op, a, b))):
+        if _spelling(names[o], ai, bi, exprs, wrapped) != exprs[i]:
+            ok[i] = False
     op[~ok], a[~ok], b[~ok] = -1, -1, -1
     todo = np.flatnonzero(~ok & (depth > 1))
     if not todo.size:
         return op, a, b, 0
-    op_id = {name: i for i, name in enumerate(ot.ALL_SURFACE_OPS)}
-    raw, wrapped = {}, {}
-    for i, r in enumerate(rows[:int(todo[-1]) + 1]):
-        s = r["expression"]
+    op_id = {name: i for i, name in enumerate(names)}
+    raw, wrap = {}, {}
+    for i, s in enumerate(exprs[:int(todo[-1]) + 1]):
         if op[i] < 0 and depth[i] > 1:
-            t = _triple_of_spelling(s, raw, wrapped)
+            t = _triple_of_spelling(s, raw, wrap)
             if t is not None:
                 op[i], a[i] = op_id[t[0]], t[1]
                 b[i] = -1 if t[2] is None else t[2]
         raw.setdefault(s, i)
-        wrapped.setdefault(wrap_operand(s), i)
+        wrap.setdefault(wrapped[i], i)
     spelled = int(np.count_nonzero(op[todo] >= 0))
     return op, a, b, spelled
+
+
+def _spelling(name: str, a: int, b: int, exprs: List[str],
+              wrapped: List[str]) -> str:
+    """The forward path's spelling of ``name`` over the rows at ``a`` and
+    ``b`` (b -1 for a unary op; ``exprs``: the rows' spellings,
+    ``wrapped``: their wrapped operand forms): ``op(a)``, ``op(a, b)``
+    or the infix format of ``SURFACE_FORMAT`` over wrapped operands."""
+    if b < 0:
+        return f"{name}({exprs[a]})"
+    fmt = ot.SURFACE_FORMAT.get(name)
+    if fmt is None:
+        return f"{name}({exprs[a]}, {exprs[b]})"
+    p1, rest = fmt.split("{a}")
+    mid, p2 = rest.split("{b}")
+    return p1 + wrapped[a] + mid + wrapped[b] + p2
 
 
 def _triple_of_spelling(expr: str, raw: Dict[str, int],

@@ -265,8 +265,7 @@ def _columns_of(rows):
     """``runtime._struct_columns`` of stored rows."""
     from pde_engine_tpu_torch.runtime import _struct_columns
     return _struct_columns(
-        rows, np.array([r["depth"] for r in rows], np.int64),
-        np.array([r["id"] for r in rows], np.int64))
+        rows, np.array([r["depth"] for r in rows], np.int64))
 
 
 def _drop_sidecar(db):
@@ -507,12 +506,123 @@ def test_db_rebuild_loses_an_unparseable_row(tmp_path, capsys):
     res.close()
 
 
+def _misspelled(enum):
+    """The composed uniques of ``enum`` with a triple whose parents do
+    not spell them as the forward path does."""
+    from pde_engine_tpu_torch.enumerator import wrap_operand
+    from pde_engine_tpu_torch.ops import optable as ot
+    names = list(ot.ALL_SURFACE_OPS)
+    es = [enum.expr_str_of(u) for u in range(enum.count_uniques())]
+    out = []
+    for u in np.flatnonzero(enum.u_op[:len(es)] >= 0).tolist():
+        name = names[int(enum.u_op[u])]
+        a, b = int(enum.u_a[u]), int(enum.u_b[u])
+        if b < 0:
+            s = f"{name}({es[a]})"
+        elif name in ot.SURFACE_FORMAT:
+            s = ot.SURFACE_FORMAT[name].format(a=wrap_operand(es[a]),
+                                               b=wrap_operand(es[b]))
+        else:
+            s = f"{name}({es[a]}, {es[b]})"
+        if s != es[u]:
+            out.append(u)
+    return out
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_second_resume_after_a_lost_row(tmp_path, capsys, writer):
+    """A resume that could not re-register a stored row writes the next
+    depth's struct columns in uids shifted past that row.  The port: a
+    depth-2 row that nothing rebuilds, lost again by the next resume.
+    The JAX package: its parse path drops a row SymPy cannot parse, here
+    a depth-2 row made so for its resume and restored after it, so that
+    the port keeps it (the JAX package's own losses, laplace's depth-3
+    ``sqrt(neg(X))``, appear only in a depth-4 run).  The next resume
+    takes a stored triple only where its parents spell the row: its
+    registry and its depth 4 equal those of a resume of the same DB with
+    every struct column NULL, and every composed unique is spelled by
+    its parents."""
+    import shutil
+    db = str(tmp_path / "run.db")
+    if writer == "port":
+        part = _run(db, 2, snapshot_jets=False)
+    else:
+        from pde_engine_tpu.runtime import DiscoveryRun as JaxRun
+        from pde_engine_tpu.utils.config import SearchConfig as JaxConfig
+        part = JaxRun("laplace", config=JaxConfig(max_depth=2),
+                      db_path=db, verbose=False)
+    part.run(2)
+    rid, table = part.run_id, part.db.table
+    part.close()
+
+    def drop_sidecars():
+        for f in (".registry.npz", ".registry.d", ".jets.d"):
+            if os.path.isdir(db + f):
+                shutil.rmtree(db + f)
+            elif os.path.exists(db + f):
+                os.remove(db + f)
+    drop_sidecars()
+    con = sqlite3.connect(db)
+    tid, texpr = con.execute(f"SELECT id, expression FROM {table} WHERE "
+                             "depth = 2 ORDER BY id LIMIT 1 OFFSET 5"
+                             ).fetchone()
+    con.execute(f"UPDATE {table} SET expression='((', struct_op=NULL, "
+                "struct_a=NULL, struct_b=NULL WHERE id=?", (tid,))
+    con.commit()
+    con.close()
+    if writer == "port":
+        first = _resume(db, rid, 3, snapshot_jets=False)
+    else:
+        first = JaxRun.resume("laplace", rid,
+                              config=JaxConfig(max_depth=3), db_path=db,
+                              verbose=False)
+    assert first.engine.id_offset == 1
+    first.continue_run(3)
+    first.close()
+    drop_sidecars()
+    con = sqlite3.connect(db)
+    if writer == "jax":
+        con.execute(f"UPDATE {table} SET expression=? WHERE id=?",
+                    (texpr, tid))
+        con.commit()
+    # the first resume's depth 3 names parents past the row by shifted uids
+    assert con.execute(f"SELECT COUNT(*) FROM {table} WHERE depth = 3 AND "
+                       "struct_a >= ?", (tid - 1,)).fetchone()[0] > 0
+    con.close()
+    nulls = str(tmp_path / "nulls.db")
+    shutil.copy(db, nulls)
+    _null_struct(nulls, table)
+    out = []
+    for path in (db, nulls):
+        capsys.readouterr()
+        res = DiscoveryRun.resume("laplace", rid,
+                                  config=SearchConfig(max_depth=4,
+                                                      snapshot_jets=False),
+                                  db_path=path, device="cpu", verbose=True,
+                                  report_families=False)
+        assert "resume: parse path: " in capsys.readouterr().out
+        enum = res.engine.enumerator
+        n = enum.count_uniques()
+        reg = _registry(res)
+        reg.update(op=enum.u_op[:n].tolist(), a=enum.u_a[:n].tolist(),
+                   b=enum.u_b[:n].tolist())
+        assert _misspelled(enum) == []
+        assert reg["id_offset"] == int(writer == "port")
+        res.continue_run(4)
+        out.append((reg, _rows(res)))
+        res.close()
+    (reg, rows), (null_reg, null_rows) = out
+    assert reg == null_reg
+    assert rows == null_rows
+
+
 def test_struct_columns_from_spelling_hazards():
     """The triples a row's spelling gives, over the rows before it:
     infix formats over wrapped operands (a depth-1 ``1 - x`` is
     ``(1 - x)`` there, bare inside a unary op), commas inside an
     operand, a spelling that two rows share (the first one names it),
-    and the stored columns, taken as they are where the ids run 1..n.
+    and the stored columns, taken where the rows at their positions
+    spell the row (a resume that lost a row writes shifted uids there).
     A row that no spelling inverts is a leaf (op -1)."""
     from pde_engine_tpu_torch.ops import optable as ot
     names = list(ot.ALL_SURFACE_OPS)
@@ -537,13 +647,23 @@ def test_struct_columns_from_spelling_hazards():
     assert a.tolist() == [-1, -1, -1, 0, 0, 0, 2, 3, 2, -1, -1]
     assert b.tolist() == [-1, -1, -1, -1, -1, 1, -1, 5, 6, -1, -1]
     assert spelled == 6
-    # stored columns are taken where present, and only where ids run 1..n
+    # stored columns are taken where they spell the row: over a spelling
+    # two rows share, and over a wrapped depth-1 operand
+    mul = names.index("mul")
     rows[7].update(struct_op=bi, struct_a=4, struct_b=5)
-    op, a, _, spelled = _columns_of(rows)
-    assert (op[7], a[7], spelled) == (bi, 4, 5)
-    gap = [dict(r, id=r["id"] + (r["id"] > 4)) for r in rows]
-    op, a, _, spelled = _columns_of(gap)
-    assert (op[7], a[7], spelled) == (bi, 3, 6)
+    rows[8].update(struct_op=mul, struct_a=2, struct_b=6)
+    op, a, b, spelled = _columns_of(rows)
+    assert (op[7], a[7], b[7], spelled) == (bi, 4, 5, 4)
+    assert (op[8], a[8], b[8]) == (mul, 2, 6)
+    # uids shifted by one (the writer lost a row) spell another row, and
+    # so does a triple that names a later row or an unknown op
+    rows[7].update(struct_a=5, struct_b=6)
+    rows[8].update(struct_a=2, struct_b=9)
+    rows[9].update(struct_op=len(names), struct_a=3, struct_b=1)
+    op, a, b, spelled = _columns_of(rows)
+    assert (op[7], a[7], b[7]) == (bi, 3, 5)
+    assert (op[8], a[8], b[8]) == (mul, 2, 6)
+    assert (op[9], a[9], b[9], spelled) == (-1, -1, -1, 6)
 
 
 def _indices(db, table):
@@ -557,6 +677,17 @@ def _indices(db, table):
     return names
 
 
+def _made_indices(tmp_path, rid, table):
+    """The secondary indices ``RunDB.ensure_indices`` builds on a new
+    file of the run."""
+    from pde_engine_tpu_torch.utils.db import RunDB
+    path = str(tmp_path / "indices.db")
+    db = RunDB(path, rid)
+    db.ensure_indices()
+    db.close()
+    return _indices(path, table)
+
+
 @pytest.mark.parametrize("rebuild", ["sidecar", "db"])
 def test_resumed_depth_written_without_secondary_indices(tmp_path,
                                                           rebuild):
@@ -566,7 +697,6 @@ def test_resumed_depth_written_without_secondary_indices(tmp_path,
     them, and its first ``RunDB.rows`` builds them.  On the registry
     sidecar and on the DB rebuild, the resumed rows equal a fresh run's
     row for row."""
-    from pde_engine_tpu_torch.runtime import SECONDARY_INDICES
     from pde_engine_tpu_torch.utils.db import RunDB
     fresh = _run(tmp_path / "fresh.db", 3)
     fresh.run(3)
@@ -575,8 +705,8 @@ def test_resumed_depth_written_without_secondary_indices(tmp_path,
     part.run(2)
     rid, table = part.run_id, part.db.table
     part.close()
-    made = {f"idx_{table}_{k}" for k in SECONDARY_INDICES}
-    assert _indices(db, table) == made
+    made = _made_indices(tmp_path, rid, table)
+    assert len(made) == 4 and _indices(db, table) == made
     if rebuild == "db":
         _drop_sidecar(db)
 
@@ -614,6 +744,40 @@ def test_resumed_depth_written_without_secondary_indices(tmp_path,
     assert _indices(db, table) == made
     assert _rows(res) == _rows(fresh)
     fresh.close()
+    res.close()
+
+
+@pytest.mark.parametrize("rebuild", ["sidecar", "db"])
+def test_non_writer_resume_keeps_secondary_indices(tmp_path, monkeypatch,
+                                                   rebuild):
+    """A rank that does not write the run (rank > 0 of ``--multihost``)
+    rebuilds it through its read-only view and leaves the file's
+    secondary indices to the writer."""
+    from pde_engine_tpu_torch.utils.db import ReadOnlyRunDB
+    db = str(tmp_path / "run.db")
+    part = _run(db, 2)
+    part.run(2)
+    rid, table = part.run_id, part.db.table
+    part.close()
+    made = _indices(db, table)
+    assert made == _made_indices(tmp_path, rid, table)
+    if rebuild == "db":
+        _drop_sidecar(db)
+    init = DiscoveryRun.__init__
+
+    def non_writer(self, *a, **kw):
+        init(self, *a, **kw)
+        if self._native_sink is not None:
+            self._native_sink.close()
+            self._native_sink = self.engine.native_sink = None
+        self.db.close()
+        self.is_writer = False
+        self.db = ReadOnlyRunDB(self.db_path, self.run_id)
+    monkeypatch.setattr(DiscoveryRun, "__init__", non_writer)
+    res = _resume(db, rid, 3)
+    assert not res.is_writer
+    assert res.engine.enumerator.count_uniques() == 65
+    assert _indices(db, table) == made
     res.close()
 
 
