@@ -1833,7 +1833,9 @@ def phase_canary(card, c4):
         + ("" if c4 is None else " (phase 4's)")
         + f"; launches {launches}; {time.time() - t0:.1f} s")
     return launches, {
-        "summary": eng.summary(), "stats": [vars(s) for s in eng.stats],
+        "summary": eng.summary(),
+        "stats": [{k: v for k, v in vars(s).items() if k != "span_events"}
+                  for s in eng.stats],
         "valid_rows": len(eng.valid_rows),
         "launched_rows": eng.launched_rows(), "timer_rows": dict(timer.rows),
         "oracle_rows": eng.stats[0].candidates
@@ -2093,7 +2095,7 @@ class Watcher:
 
         import torch
 
-        from pde_engine_tpu_torch import pipeline
+        from pde_engine_tpu_torch.utils import spans
         from pde_engine_tpu_torch.utils.monitor import format_status
         while not self.stop.wait(WATCH_S):
             status = None
@@ -2106,10 +2108,9 @@ class Watcher:
                     status = format_status(self.db, row[0])
             except sqlite3.Error as e:
                 status = f"(status unreadable: {e})"
-            try:
-                sec = dict(pipeline._INGEST_TIMERS)
-            except RuntimeError:  # a section added while copying
-                sec = {}
+            sec = {k[len(spans.SECTION):]: v
+                   for k, v in spans.pending().items()
+                   if k.startswith(spans.SECTION)}
             print(f"  [watch +{time.time() - self.t0:.0f} s] {status} | "
                   "ingest sections so far: " + " ".join(
                       f"{k} {v:.1f}" for k, v in sec.items())

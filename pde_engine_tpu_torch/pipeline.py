@@ -28,7 +28,6 @@ ingests the same rows (``parallel/distributed.py``), and with
 
 from __future__ import annotations
 
-import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -46,6 +45,7 @@ from .parallel.mesh import shard_ranges
 from .parallel.search import (ScreenResult, informative_points,
                               snap_fp_jets_np, unpack_screen_result_compact,
                               verdicts_from_jets_np)
+from .utils import spans
 from .utils.config import SearchConfig
 from .utils.hashing import FP_MASK, STRUCT_TAG, op_salt, struct_key_for_expr
 
@@ -319,34 +319,20 @@ class DepthStats:
     t_device: float = 0.0     # kernel launch + result transfer
     t_ingest: float = 0.0     # dedup + verdicts + rows
     t_gray: float = 0.0       # batched f64 rechecks
-    # seconds per section of _ingest_vec within t_ingest (only with
-    # PDE_INGEST_TIMERS set)
+    # the rest only with PDE_INGEST_TIMERS set (utils/spans.py): seconds
+    # per section of _ingest_vec within t_ingest, the JAX package's names;
+    # {name: {"n", "s", "self"}} of the spans that ended in this depth;
+    # counters; (name, start, end, parent, thread) of each span but the
+    # ingest sections
     ingest_sections: Dict[str, float] = field(default_factory=dict)
+    spans: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
+    span_events: List[Tuple[str, float, float, Optional[str], str]] = field(
+        default_factory=list)
 
 
-# Ingest sub-timers (PDE_INGEST_TIMERS=1), as in the JAX package: wall
-# seconds per section of _ingest_vec, moved into each depth's DepthStats
-# at its end and printed by the runtime after the depth line.  The flag is
-# read at import.
-_INGEST_TIMERS: Dict[str, float] = {}
-_TIME_INGEST = bool(os.environ.get("PDE_INGEST_TIMERS"))
-
-
-class _Section:
-    __slots__ = ("key", "t0")
-
-    def __init__(self, key: str):
-        self.key = key
-
-    def __enter__(self):
-        if _TIME_INGEST:
-            self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if _TIME_INGEST:
-            _INGEST_TIMERS[self.key] = (
-                _INGEST_TIMERS.get(self.key, 0.0)
-                + time.perf_counter() - self.t0)
+# the fields that the JAX package's DepthStats lacks
+TRACED = ("ingest_sections", "spans", "counts", "span_events")
 
 
 class _Passer:
@@ -517,7 +503,8 @@ class DiscoveryEngine:
         self.errors = 0
         self._gray: List[Tuple[Candidate, dict, int]] = []
         # one overlap worker for the gray f64 numerics (see _gray_numeric)
-        self._gray_pool = ThreadPoolExecutor(max_workers=1)
+        self._gray_pool = ThreadPoolExecutor(max_workers=1,
+                                             thread_name_prefix="gray")
         self._gray_done: List = []
         self._math_def = problem.describe().get("math_definition", "")
         self._prepare_known_solutions()
@@ -767,7 +754,7 @@ class DiscoveryEngine:
         n = a_u.size
         st.candidates += n
 
-        with _Section("keys"):
+        with spans.span("ingest.keys"):
             bb = b_u if b_u is not None else np.zeros(n, np.int32)
             with np.errstate(over="ignore"):
                 struct = (a_u.astype(np.uint64)
@@ -778,7 +765,7 @@ class DiscoveryEngine:
             struct |= np.uint64(STRUCT_TAG)
             keys = self._fp_keys(sr, n, struct)
 
-        with _Section("dedup"):
+        with spans.span("ingest.dedup"):
             enum = self.enumerator
             if self._reg_world > 1:
                 new_idx = self._dedup_sharded(keys, enum.count_uniques())
@@ -790,7 +777,7 @@ class DiscoveryEngine:
         k_new = int(new_idx.size)
 
         persist = self.persist_host
-        with _Section("register"):
+        with spans.span("ingest.register"):
             uid0, exprs = enum.add_uniques_bulk(
                 op_name, a_u[new_idx],
                 None if b_u is None else b_u[new_idx], depth,
@@ -810,25 +797,25 @@ class DiscoveryEngine:
             # rows and gray rechecks are the writer's; uid assignment and
             # the cache do not depend on them
             self.n_rows += k_new
-            with _Section("cache_append"):
+            with spans.span("ingest.cache_append"):
                 self._append_cache_section(out_s, out_f, k_new, new_idx,
                                            append_cache, defer_append_to,
                                            row_offset)
             return
 
-        with _Section("verdicts"):
+        with spans.span("ingest.verdicts"):
             has_var = enum.f_has_var[uid0:uid0 + k_new]
             is_const = sr.is_const[new_idx] | ~has_var
             nonfin = ((~sr.fp_finite[new_idx] | sr.nonfinite[new_idx])
                       & ~is_const)
             passing = sr.screen_ok[new_idx] & ~is_const & ~nonfin
 
-        with _Section("rejects"):
+        with spans.span("ingest.rejects"):
             self._emit_rejects_bulk(
                 uid0, exprs, newkeys, depth, sr, new_idx,
                 is_const, nonfin, passing, on_row, on_rows)
 
-        with _Section("passers"):
+        with spans.span("ingest.passers"):
             pass_locals = np.nonzero(passing)[0]
             for local in pass_locals.tolist():
                 uid = uid0 + local
@@ -843,7 +830,7 @@ class DiscoveryEngine:
                 else:
                     self._gray.append((u, ev, key))
 
-        with _Section("cache_append"):
+        with spans.span("ingest.cache_append"):
             self._append_cache_section(out_s, out_f, k_new, new_idx,
                                        append_cache, defer_append_to,
                                        row_offset)
@@ -1020,6 +1007,7 @@ class DiscoveryEngine:
         else:
             self._gray.append((cand, ev, key))
 
+    @spans.traced("finalize")
     def _finalize_pass(self, cand, ev, rel64, f64_tag, depth, st, on_row,
                        key: int = 0):
         """Stages 3-4 for a candidate that survived the numeric funnel."""
@@ -1036,15 +1024,17 @@ class DiscoveryEngine:
         else:
             reason = (f"Valid (numeric zero, relres ≈ {rel64:.2e}; "
                       "symbolic confirm skipped)")
+        with spans.span("match_known"):
+            known = self._match_known(cand, ev["fp_vals"])
         row = self._add_row(cand, depth, True, reason,
-                            f"{f64_tag}+{method}", ev, None,
-                            known=self._match_known(cand, ev["fp_vals"]),
+                            f"{f64_tag}+{method}", ev, None, known=known,
                             key=key, rel64=rel64)
         st.valid += 1
         if not self.config.defer_heavy_checks:
             try:
-                hu = self.problem.tape_to_sympy(cand.tape)
-                h_ok, h_reason = self.problem.heavy_checks(hu)
+                with spans.span("heavy_checks"):
+                    hu = self.problem.tape_to_sympy(cand.tape)
+                    h_ok, h_reason = self.problem.heavy_checks(hu)
             except Exception as e:
                 h_ok, h_reason = False, f"heavy check error: {e}"
                 self.errors += 1
@@ -1058,6 +1048,7 @@ class DiscoveryEngine:
         if on_row is not None:
             on_row(row)
 
+    @spans.traced("gray.numeric")
     def _gray_numeric(self, part):
         """The float64 numeric section of the gray recheck for one chunk —
         a pure function of the candidates, run on the overlap thread."""
@@ -1092,9 +1083,11 @@ class DiscoveryEngine:
         if st is not None:
             while self._gray_done and self._gray_done[0][1].done():
                 part, fut = self._gray_done.pop(0)
-                self._emit_gray_part(part, fut.result(), depth, st,
-                                     on_row)
+                with spans.span("gray.wait"):
+                    res = fut.result()
+                self._emit_gray_part(part, res, depth, st, on_row)
 
+    @spans.traced("gray.emit")
     def _emit_gray_part(self, part, res, depth, st, on_row):
         const64, finite, relmax = res
         for j, (cand, ev, key) in enumerate(part):
@@ -1123,7 +1116,9 @@ class DiscoveryEngine:
             self._gray = []
         done, self._gray_done = self._gray_done, []
         for part, fut in done:
-            self._emit_gray_part(part, fut.result(), depth, st, on_row)
+            with spans.span("gray.wait"):
+                res = fut.result()
+            self._emit_gray_part(part, res, depth, st, on_row)
 
     def _add_row(self, cand, depth, is_valid, reason, method, ev,
                  on_row=None, known=None, key: int = 0,
@@ -1269,17 +1264,19 @@ class DiscoveryEngine:
 
         def drain(item, state):
             op_name, a_u, b_u, packed, out_s, out_f = item
-            ti = time.perf_counter()
-            sr = self._unpack_finish(*state)
-            st.t_device += time.perf_counter() - ti
-            self.device_seconds += time.perf_counter() - ti
-            ti = time.perf_counter()
-            self._ingest_vec(
-                op_name, a_u, b_u, sr, depth, st, on_row, out_s, out_f,
-                append_cache=(depth < max_depth or self.cache.n
-                              < self.config.final_append_limit),
-                on_rows=on_rows, retain_strings=(depth < max_depth))
-            st.t_ingest += time.perf_counter() - ti
+            with spans.span("device"):
+                ti = time.perf_counter()
+                sr = self._unpack_finish(*state)
+                st.t_device += time.perf_counter() - ti
+                self.device_seconds += time.perf_counter() - ti
+            with spans.span("ingest"):
+                ti = time.perf_counter()
+                self._ingest_vec(
+                    op_name, a_u, b_u, sr, depth, st, on_row, out_s, out_f,
+                    append_cache=(depth < max_depth or self.cache.n
+                                  < self.config.final_append_limit),
+                    on_rows=on_rows, retain_strings=(depth < max_depth))
+                st.t_ingest += time.perf_counter() - ti
             self._gray_maybe_submit(depth=depth, st=st, on_row=on_row)
             if on_batch is not None:
                 on_batch(st)
@@ -1287,25 +1284,28 @@ class DiscoveryEngine:
         def head(item):
             """Fetch the verdicts and gather the passer rows of ``item``;
             runs before the next launch."""
-            th = time.perf_counter()
-            state = self._unpack_start(item[3], item[5])
-            st.t_device += time.perf_counter() - th
-            self.device_seconds += time.perf_counter() - th
+            with spans.span("device"):
+                th = time.perf_counter()
+                state = self._unpack_start(item[3], item[5])
+                st.t_device += time.perf_counter() - th
+                self.device_seconds += time.perf_counter() - th
             return state
 
         while True:
-            te = time.perf_counter()
-            item = next(gen, None)
-            st.t_enum += time.perf_counter() - te
+            with spans.span("enum"):
+                te = time.perf_counter()
+                item = next(gen, None)
+                st.t_enum += time.perf_counter() - te
             if item is None:
                 break
             op_name, a_u, b_u = item
             if a_u.size == 0:
                 continue
             state = head(pending) if pending is not None else None
-            td = time.perf_counter()
-            packed, out_s, out_f = self._eval_op_idx(op_name, a_u, b_u)
-            st.t_device += time.perf_counter() - td
+            with spans.span("device"):
+                td = time.perf_counter()
+                packed, out_s, out_f = self._eval_op_idx(op_name, a_u, b_u)
+                st.t_device += time.perf_counter() - td
             if pending is not None:
                 drain(pending, state)
             pending = (op_name, a_u, b_u, packed, out_s, out_f)
@@ -1330,12 +1330,13 @@ class DiscoveryEngine:
                     or self.cache.n < self.config.final_append_limit)
 
         def launch(ln: Launch):
-            td = time.perf_counter()
-            packed, out_s, out_f = launch_screen(
-                self._spec, self.cache, ln,
-                tuple(self._dev(x) for x in ln.index), self._spoints,
-                self._fpoints)
-            st.t_device += time.perf_counter() - td
+            with spans.span("device"):
+                td = time.perf_counter()
+                packed, out_s, out_f = launch_screen(
+                    self._spec, self.cache, ln,
+                    tuple(self._dev(x) for x in ln.index), self._spoints,
+                    self._fpoints)
+                st.t_device += time.perf_counter() - td
             name = f"{ln.kernel}_dispatches"
             setattr(self, name, getattr(self, name) + 1)
             self._tally_launch(ln.kernel, ln.rows,
@@ -1346,44 +1347,48 @@ class DiscoveryEngine:
             """Fetch verdicts + gather the passer rows.  Runs before the
             next launch."""
             _, packed, _, out_f = item
-            ti = time.perf_counter()
-            state = self._unpack_start(packed, out_f)
-            st.t_device += time.perf_counter() - ti
-            self.device_seconds += time.perf_counter() - ti
+            with spans.span("device"):
+                ti = time.perf_counter()
+                state = self._unpack_start(packed, out_f)
+                st.t_device += time.perf_counter() - ti
+                self.device_seconds += time.perf_counter() - ti
             return state
 
         def drain_tail(item, state):
             d_segs, packed, out_s, out_f = item
             self.candidates_screened += sum(s[2].size for s in d_segs)
-            ti = time.perf_counter()
-            sr = self._unpack_finish(*state)
-            st.t_device += time.perf_counter() - ti
-            self.device_seconds += time.perf_counter() - ti
-            ti = time.perf_counter()
-            kept: List[int] = []
-            for (op_name, start, a_seg, b_seg) in d_segs:
-                n = a_seg.size
-                view = ScreenResult(*[f[start:start + n] for f in sr])
-                self._ingest_vec(
-                    op_name, a_seg, b_seg, view, depth, st, on_row,
-                    out_s, out_f, append_cache=append_ok(),
-                    on_rows=on_rows,
-                    retain_strings=(depth < max_depth),
-                    row_offset=start, defer_append_to=kept)
-            if kept and append_ok():
-                room = self.cache_row_limit - self.cache.n
-                if room > 0:
-                    self._append_kept(out_s, out_f, kept[:room])
-            st.t_ingest += time.perf_counter() - ti
+            with spans.span("device"):
+                ti = time.perf_counter()
+                sr = self._unpack_finish(*state)
+                st.t_device += time.perf_counter() - ti
+                self.device_seconds += time.perf_counter() - ti
+            with spans.span("ingest"):
+                ti = time.perf_counter()
+                kept: List[int] = []
+                for (op_name, start, a_seg, b_seg) in d_segs:
+                    n = a_seg.size
+                    view = ScreenResult(*[f[start:start + n] for f in sr])
+                    self._ingest_vec(
+                        op_name, a_seg, b_seg, view, depth, st, on_row,
+                        out_s, out_f, append_cache=append_ok(),
+                        on_rows=on_rows,
+                        retain_strings=(depth < max_depth),
+                        row_offset=start, defer_append_to=kept)
+                if kept and append_ok():
+                    room = self.cache_row_limit - self.cache.n
+                    if room > 0:
+                        self._append_kept(out_s, out_f, kept[:room])
+                st.t_ingest += time.perf_counter() - ti
             self._gray_maybe_submit(depth=depth, st=st, on_row=on_row)
             if on_batch is not None:
                 on_batch(st)
 
         def timed(gen):
             while True:
-                te = time.perf_counter()
-                item = next(gen, None)
-                st.t_enum += time.perf_counter() - te
+                with spans.span("enum"):
+                    te = time.perf_counter()
+                    item = next(gen, None)
+                    st.t_enum += time.perf_counter() - te
                 if item is None:
                     return
                 yield item
@@ -1417,15 +1422,18 @@ class DiscoveryEngine:
 
         def flush(buf):
             for group, evals, out_s, out_f in self._eval_tape_groups(buf):
-                ti = time.perf_counter()
-                self._ingest(group, evals, depth, st, on_row, out_s, out_f)
-                st.t_ingest += time.perf_counter() - ti
+                with spans.span("ingest"):
+                    ti = time.perf_counter()
+                    self._ingest(group, evals, depth, st, on_row, out_s,
+                                 out_f)
+                    st.t_ingest += time.perf_counter() - ti
 
         gen = self.enumerator.candidates_at_depth(depth)
         while True:
-            te = time.perf_counter()
-            cand = next(gen, None)
-            st.t_enum += time.perf_counter() - te
+            with spans.span("enum"):
+                te = time.perf_counter()
+                cand = next(gen, None)
+                st.t_enum += time.perf_counter() - te
             if cand is None:
                 break
             buf.append(cand)
@@ -1445,42 +1453,52 @@ class DiscoveryEngine:
         max_depth = max_depth or self.config.max_depth
         self._keep_rows = on_rows is None
         for depth in range(start_depth, max_depth + 1):
-            t0 = time.perf_counter()
-            st = DepthStats(depth=depth)
-            _INGEST_TIMERS.clear()
-            if depth == 1:
-                prims = self.enumerator.primitive_candidates()
-                for group, evals, out_s, out_f in self._eval_tape_groups(
-                        prims):
-                    self._ingest(group, evals, depth, st, on_row,
-                                 out_s, out_f)
-            elif self.config.engine == "tape":
-                self._run_depth_tape(depth, st, on_row)
-            else:
-                if self.cache.n < self.enumerator.count_uniques():
-                    trunc = self.enumerator.count_uniques() - self.cache.n
-                    fix = ("raise --max-cache-rows or add devices"
-                           if self._cache_sharded else
-                           "raise --max-cache-rows, or split the cache "
-                           "over a mesh with --devices K --shard-cache")
-                    print(f"  [mem] parent window truncated: {trunc} of "
-                          f"{self.enumerator.count_uniques()} uniques "
-                          "exceed the cache budget and are not composed "
-                          f"deeper ({fix})", flush=True)
-                run_depth = (self._run_depth_segmented
-                             if self._use_segmented()
-                             else self._run_depth_per_op)
-                run_depth(depth, max_depth, st, on_row, on_rows, on_batch)
-            tg = time.perf_counter()
-            self._flush_gray(depth, st, on_row)
-            st.t_gray = time.perf_counter() - tg
-            st.seconds = time.perf_counter() - t0
-            st.ingest_sections = dict(_INGEST_TIMERS)
-            _INGEST_TIMERS.clear()
+            if depth > start_depth:
+                # what ended after the depth before: its barrier
+                spans.drain(self.stats[-1])
+            with spans.span("depth"):
+                t0 = time.perf_counter()
+                st = DepthStats(depth=depth)
+                self._run_depth(depth, max_depth, st, on_row, on_rows,
+                                on_batch)
+                with spans.span("gray.flush"):
+                    tg = time.perf_counter()
+                    self._flush_gray(depth, st, on_row)
+                    st.t_gray = time.perf_counter() - tg
+                st.seconds = time.perf_counter() - t0
+            # the depth's spans, and those that ended before the run's
+            # first depth
+            spans.drain(st)
             self.stats.append(st)
             if on_depth is not None:
                 on_depth(st)
         return self.stats
+
+    def _run_depth(self, depth: int, max_depth: int, st: DepthStats,
+                   on_row, on_rows, on_batch):
+        """One depth's candidates through its path, up to the depth-end
+        flush of the gray rows."""
+        if depth == 1:
+            prims = self.enumerator.primitive_candidates()
+            for group, evals, out_s, out_f in self._eval_tape_groups(prims):
+                self._ingest(group, evals, depth, st, on_row, out_s, out_f)
+        elif self.config.engine == "tape":
+            self._run_depth_tape(depth, st, on_row)
+        else:
+            if self.cache.n < self.enumerator.count_uniques():
+                trunc = self.enumerator.count_uniques() - self.cache.n
+                fix = ("raise --max-cache-rows or add devices"
+                       if self._cache_sharded else
+                       "raise --max-cache-rows, or split the cache "
+                       "over a mesh with --devices K --shard-cache")
+                print(f"  [mem] parent window truncated: {trunc} of "
+                      f"{self.enumerator.count_uniques()} uniques "
+                      "exceed the cache budget and are not composed "
+                      f"deeper ({fix})", flush=True)
+            run_depth = (self._run_depth_segmented
+                         if self._use_segmented()
+                         else self._run_depth_per_op)
+            run_depth(depth, max_depth, st, on_row, on_rows, on_batch)
 
     def dispatch_counts(self) -> Dict[str, int]:
         return {"segmented": self.segmented_dispatches,
@@ -1497,14 +1515,14 @@ class DiscoveryEngine:
 
     def summary(self) -> Dict:
         """The run so far, with the JAX engine's ``summary()`` keys: each
-        depth's stats holds the JAX ``DepthStats`` fields (the ingest
-        sections stay in ``self.stats``); ``candidates_screened`` counts
-        the candidates screened, by the float64 oracle at depth 1 (and on
-        the tape engine) and by the kernels after it, and no pad row."""
+        depth's stats holds the JAX ``DepthStats`` fields (the ``TRACED``
+        ones stay in ``self.stats``); ``candidates_screened`` counts the
+        candidates screened, by the float64 oracle at depth 1 (and on the
+        tape engine) and by the kernels after it, and no pad row."""
         return {
             "problem": self.problem.slug,
             "depths": [{k: v for k, v in vars(s).items()
-                        if k != "ingest_sections"} for s in self.stats],
+                        if k not in TRACED} for s in self.stats],
             "total_candidates": sum(s.candidates for s in self.stats),
             "total_unique": sum(s.unique for s in self.stats),
             "total_valid": len(self.valid_rows),

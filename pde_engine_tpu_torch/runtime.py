@@ -40,6 +40,7 @@ from .enumerator import Candidate, wrap_operand
 from .ops import optable as ot
 from .models.base import Problem, load_problem
 from .pipeline import DepthStats, DiscoveryEngine, Row
+from .utils import spans
 from .utils.config import SearchConfig
 from .utils.db import ReadOnlyRunDB, RunDB, db_path_for, new_run_id
 from .utils.report import build_report, format_report_text, write_report_files
@@ -54,46 +55,51 @@ class DiscoveryRun:
                  db_path: Optional[str] = None, device="cuda",
                  verbose: bool = True, report_families: bool = True,
                  mesh=None):
-        from .parallel.distributed import agree, is_writer
-        self.problem = (problem_name if isinstance(problem_name, Problem)
-                        else load_problem(problem_name))
-        self.config = config or SearchConfig()
-        # every process of a multi-process run takes rank 0's id
-        self.run_id = run_id or (new_run_id() if mesh is None
-                                 else agree(new_run_id()))
-        if db_path:
-            self.db_path = db_path
-            self.out_dir = os.path.dirname(os.path.abspath(db_path))
-        else:
-            self.out_dir = self.problem.get_output_dir()
-            self.db_path = db_path_for(self.out_dir, self.run_id)
-        self.verbose = verbose
-        self.report_families = report_families
-        if self.config.spill_strings == "auto":
-            # resolved here, where the run DB's directory is known
-            self.config.spill_strings = self.out_dir
-        self.mesh = mesh
-        self.engine = DiscoveryEngine(self.problem, self.config,
-                                      device=device, mesh=mesh)
-        # single-writer discipline: across processes only rank 0 owns the
-        # run DB, the reports and the sidecars; the others read through
-        self.is_writer = not self.engine._multihost or is_writer()
-        if self.is_writer:
-            self.db = RunDB(self.db_path, self.run_id)
-        else:
-            self.db = ReadOnlyRunDB(self.db_path, self.run_id)
-        # native reject sink: mass reject rows go straight into the run DB
-        # through the C++ writer
-        self._native_sink = None
-        if self.is_writer and self.config.use_native is not False:
-            from .utils.native import NativeRejectSink, load_core
-            if load_core() is not None:
-                self._native_sink = NativeRejectSink(self.db_path,
-                                                     self.db.table)
-                self.engine.native_sink = self._native_sink
-            elif self.config.use_native is True:
-                raise RuntimeError("use_native=True but the native core "
-                                   "failed to build/load")
+        # spans that ended outside a run belong to none
+        spans.drain(None)
+        self._run_span = spans.start("run")
+        with spans.span("run.open"):
+            from .parallel.distributed import agree, is_writer
+            self.problem = (problem_name if isinstance(problem_name, Problem)
+                            else load_problem(problem_name))
+            self.config = config or SearchConfig()
+            # every process of a multi-process run takes rank 0's id
+            self.run_id = run_id or (new_run_id() if mesh is None
+                                     else agree(new_run_id()))
+            if db_path:
+                self.db_path = db_path
+                self.out_dir = os.path.dirname(os.path.abspath(db_path))
+            else:
+                self.out_dir = self.problem.get_output_dir()
+                self.db_path = db_path_for(self.out_dir, self.run_id)
+            self.verbose = verbose
+            self.report_families = report_families
+            if self.config.spill_strings == "auto":
+                # resolved here, where the run DB's directory is known
+                self.config.spill_strings = self.out_dir
+            self.mesh = mesh
+            self.engine = DiscoveryEngine(self.problem, self.config,
+                                          device=device, mesh=mesh)
+            # single-writer discipline: across processes only rank 0
+            # owns the run DB, the reports and the sidecars; the others
+            # read through
+            self.is_writer = not self.engine._multihost or is_writer()
+            if self.is_writer:
+                self.db = RunDB(self.db_path, self.run_id)
+            else:
+                self.db = ReadOnlyRunDB(self.db_path, self.run_id)
+            # native reject sink: mass reject rows go straight into the run
+            # DB through the C++ writer
+            self._native_sink = None
+            if self.is_writer and self.config.use_native is not False:
+                from .utils.native import NativeRejectSink, load_core
+                if load_core() is not None:
+                    self._native_sink = NativeRejectSink(self.db_path,
+                                                         self.db.table)
+                    self.engine.native_sink = self._native_sink
+                elif self.config.use_native is True:
+                    raise RuntimeError("use_native=True but the native "
+                                       "core failed to build/load")
 
     def _log(self, msg: str):
         if self.verbose:
@@ -112,14 +118,16 @@ class DiscoveryRun:
     def run(self, max_depth: Optional[int] = None,
             start_depth: int = 1) -> Dict:
         max_depth = max_depth or self.config.max_depth
-        if start_depth == 1 and not hasattr(self, "_resume_start_depth"):
-            self._fresh_cleanup()
-        self.db.start_run(max_depth)
-        t_start = time.time()
-        self._log(f"Run {self.run_id}: {self.problem.name}, "
-                  f"max_depth={max_depth}, device={self.engine.device}, "
-                  f"db={self.db_path}" + self._mesh_note())
-        self._validate_knowns()
+        with spans.span("run.open"):
+            if start_depth == 1 and not hasattr(self, "_resume_start_depth"):
+                self._fresh_cleanup()
+            with spans.span("db.write"):
+                self.db.start_run(max_depth)
+            t_start = time.time()
+            self._log(f"Run {self.run_id}: {self.problem.name}, "
+                      f"max_depth={max_depth}, device={self.engine.device}, "
+                      f"db={self.db_path}" + self._mesh_note())
+            self._validate_knowns()
 
         def on_row(row: Row):
             self.db.add_row(row)
@@ -134,43 +142,49 @@ class DiscoveryRun:
             if now - last_beat[0] < 2.0:
                 return
             last_beat[0] = now
-            self.db.flush()
-            self.db.update_metadata(
-                sum(s.candidates for s in self.engine.stats) + st.candidates,
-                self.engine.n_rows, len(self.engine.valid_rows))
-            self.db.worker_heartbeat(os.getpid(), "device",
-                                     self.engine.candidates_screened,
-                                     errors=self.engine.errors,
-                                     snippet=self.engine.last_expr)
+            with spans.span("db.write"):
+                self.db.flush()
+                self.db.update_metadata(
+                    sum(s.candidates for s in self.engine.stats)
+                    + st.candidates,
+                    self.engine.n_rows, len(self.engine.valid_rows))
+                self.db.worker_heartbeat(os.getpid(), "device",
+                                         self.engine.candidates_screened,
+                                         errors=self.engine.errors,
+                                         snippet=self.engine.last_expr)
 
+        @spans.traced("depth.barrier")
         def on_depth(st):
             # every queued native-sink batch is in the DB before the depth
             # is marked completed
             if self._native_sink is not None:
                 self._native_sink.flush()
-            self.db.flush()
-            generated = sum(s.candidates for s in self.engine.stats)
-            self.db.update_metadata(generated, self.engine.n_rows,
-                                    len(self.engine.valid_rows))
-            self.db.save_generator_state({
-                "completed_depth": st.depth,
-                "max_depth": max_depth,
-                "include_special_ops": self.config.include_special_ops,
-                "prune": self.config.prune,
-                "audit_rejects": self.config.audit_rejects,
-                "math_definition": self.engine._math_def,
-                "cache_n": self.engine.cache.n,
-                "device": str(self.engine.device),
-                "by_depth_counts": {
-                    str(s.depth): {"generated": s.unique, "valid": s.valid,
-                                   "candidates": s.candidates}
-                    for s in self.engine.stats},
-            })
+            with spans.span("db.write"):
+                self.db.flush()
+                generated = sum(s.candidates for s in self.engine.stats)
+                self.db.update_metadata(generated, self.engine.n_rows,
+                                        len(self.engine.valid_rows))
+                self.db.save_generator_state({
+                    "completed_depth": st.depth,
+                    "max_depth": max_depth,
+                    "include_special_ops": self.config.include_special_ops,
+                    "prune": self.config.prune,
+                    "audit_rejects": self.config.audit_rejects,
+                    "math_definition": self.engine._math_def,
+                    "cache_n": self.engine.cache.n,
+                    "device": str(self.engine.device),
+                    "by_depth_counts": {
+                        str(s.depth): {"generated": s.unique,
+                                       "valid": s.valid,
+                                       "candidates": s.candidates}
+                        for s in self.engine.stats},
+                })
             self._save_jet_snapshot()
             self._save_registry_sidecar(st.depth)
-            self.db.worker_heartbeat(os.getpid(), "device",
-                                     self.engine.n_rows,
-                                     errors=self.engine.errors)
+            with spans.span("db.write"):
+                self.db.worker_heartbeat(os.getpid(), "device",
+                                         self.engine.n_rows,
+                                         errors=self.engine.errors)
             rate = (st.candidates / st.seconds) if st.seconds > 0 else 0
             self._log(f"  depth {st.depth}: {st.candidates} candidates, "
                       f"{st.unique} unique, {st.valid} valid "
@@ -180,6 +194,12 @@ class DiscoveryRun:
             if st.ingest_sections:
                 self._log("    ingest breakdown: " + " ".join(
                     f"{k} {v:.1f}" for k, v in st.ingest_sections.items()))
+            if st.spans:
+                self._log("    spans: " + " ".join(
+                    f"{k} {v['n']}x {v['s']:.2f}/{v['self']:.2f}"
+                    for k, v in st.spans.items()
+                    if not k.startswith(spans.SECTION)) + " | " + " ".join(
+                    f"{k} {v}" for k, v in st.counts.items()))
             if self.engine._multihost:
                 from .parallel.distributed import EXCHANGE, backend
                 self._log(f"    exchange ({backend()}): {EXCHANGE['calls']} "
@@ -193,7 +213,17 @@ class DiscoveryRun:
         except KeyboardInterrupt:
             self.db.complete_run("aborted")
             raise
-        self.db.flush()
+        return self._complete(max_depth, t_start)
+
+    @spans.traced("report")
+    def _complete(self, max_depth: int, t_start: float) -> Dict:
+        """The completion after the last depth: the DB's indices, the
+        report (family pass and classing) and its files."""
+        with spans.span("db.write"):
+            self.db.flush()
+        # idempotent: the first read of the rows would build them
+        with spans.span("report.index_build"):
+            self.db.ensure_indices()
         # a non-writer's view of the shared DB races the writer's inserts:
         # its engine's rows and stats are its record
         valid = (self.db.rows("is_valid=1") if self.is_writer
@@ -221,11 +251,12 @@ class DiscoveryRun:
             report["mesh"] = self._mesh_report()
         paths = (write_report_files(report, self.out_dir)
                  if self.is_writer else None)
-        self.db.update_metadata(
-            sum(s.candidates for s in self.engine.stats)
-            or report["total_generated"],
-            self.engine.n_rows, report["total_valid"])
-        self.db.complete_run("completed")
+        with spans.span("db.write"):
+            self.db.update_metadata(
+                sum(s.candidates for s in self.engine.stats)
+                or report["total_generated"],
+                self.engine.n_rows, report["total_valid"])
+            self.db.complete_run("completed")
         self._log(format_report_text(report))
         if self.engine._multihost:
             # each rank's own record: it writes no report
@@ -273,6 +304,7 @@ class DiscoveryRun:
             out["exchange"] = dict(EXCHANGE)
         return out
 
+    @spans.traced("report.families")
     def _family_pass(self, valid_rows):
         """Array-level family tagging of the valid rows (utils/families):
         (breakdown, codes, names, is_novel), all None when there is no
@@ -1153,11 +1185,17 @@ class DiscoveryRun:
         return out
 
     def close(self):
-        if self._native_sink is not None:
-            self._native_sink.close()
-            self._native_sink = None
-        self.engine._gray_pool.shutdown(wait=True)
-        self.db.close()
+        with spans.span("run.close"):
+            if self._native_sink is not None:
+                self._native_sink.close()
+                self._native_sink = None
+            self.engine._gray_pool.shutdown(wait=True)
+            self.db.close()
+        self._run_span.end()
+        self._run_span = spans.OFF
+        # what ended after the last depth's stats were written: the
+        # report, close() and the run itself
+        spans.drain(self.engine.stats[-1] if self.engine.stats else None)
 
 
 # the generator-state flags that decide which expressions a run

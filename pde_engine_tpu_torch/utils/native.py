@@ -23,12 +23,15 @@ import ctypes as ct
 import glob
 import hashlib
 import os
+import queue
 import subprocess
 import sys
 import threading
 from typing import Optional, Tuple
 
 import numpy as np
+
+from . import spans
 
 _lock = threading.Lock()
 _core = None
@@ -558,11 +561,10 @@ class NativeRejectSink:
             core.idb_close(self._h)
             self._h = None
             raise RuntimeError(f"native sink: {msg}")
-        import queue
-        import threading
         self._q: "queue.Queue" = queue.Queue(maxsize=self.QUEUE_MAX)
         self._err = None
-        self._writer = threading.Thread(target=self._drain, daemon=True)
+        self._writer = threading.Thread(target=self._drain, daemon=True,
+                                        name="sink")
         self._writer.start()
 
     def _drain(self):
@@ -597,16 +599,25 @@ class NativeRejectSink:
         b8 = lambda a: np.ascontiguousarray(a, dtype=np.uint8)  # noqa: E731
         i32 = lambda a: (None if a is None else  # noqa: E731
                          np.ascontiguousarray(a, dtype=np.int32).copy())
-        self._q.put((
+        item = (
             np.ascontiguousarray(ids, dtype=np.int64).copy(), exprs_blob,
             np.ascontiguousarray(sigs, dtype=np.uint64).copy(), depth,
             np.ascontiguousarray(reason_code, dtype=np.uint8).copy(),
             np.ascontiguousarray(rel, dtype=np.float32).copy(),
             b8(screen_ok).copy(), b8(nonfinite).copy(), b8(is_const).copy(),
             b8(fp_finite).copy(), n_screen_points, math_def,
-            struct_op, i32(struct_a), i32(struct_b)))
+            struct_op, i32(struct_a), i32(struct_b))
+        spans.count("sink.batches")
+        spans.count("sink.rows", n)
+        try:
+            self._q.put_nowait(item)
+        except queue.Full:
+            spans.count("sink.blocked")
+            with spans.span("sink.wait"):
+                self._q.put(item)
         return n
 
+    @spans.traced("sink.write")
     def _emit_now(self, ids, exprs_blob, sigs, depth, reason_code, rel,
                   screen_ok, nonfinite, is_const, fp_finite,
                   n_screen_points, math_def, struct_op, struct_a,
@@ -635,16 +646,18 @@ class NativeRejectSink:
     def flush(self):
         """Block until every queued batch is committed (depth barriers,
         monitor counts, and close() call this)."""
-        self._q.join()
+        with spans.span("sink.wait"):
+            self._q.join()
         if self._err is not None:
             raise self._err
 
     def close(self):
         if self._h is not None:
             try:
-                self._q.join()
-                self._q.put(None)
-                self._writer.join(timeout=30)
+                with spans.span("sink.wait"):
+                    self._q.join()
+                    self._q.put(None)
+                    self._writer.join(timeout=30)
             finally:
                 self._core.idb_close(self._h)
                 self._h = None

@@ -15,6 +15,8 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Optional
 
+from . import spans
+
 
 def _canonical_class_key(expr_str: str, problem) -> str:
     """Equivalence-class key for novel-solution grouping (reference
@@ -118,27 +120,29 @@ def build_report(problem, rows: Optional[List] = None,
                       "rows exceed the SymPy classing limit; rerun with "
                       "--print-run-id for full classing)")
     if classify_novel:
-        cap = max_novel_classes * 10
-        if len(novel) > cap:
-            extra = (f"novel-class grouping covers the first {cap} of "
-                     f"{len(novel)} novel rows")
-            novel_note = f"{novel_note}; {extra}" if novel_note else extra
-        # shortest-first so a cap keeps the most interpretable rows
-        def _elen(r):
-            return len(r.expression if hasattr(r, "expression")
-                       else r["expression"])
-        novel = sorted(novel, key=_elen)
-        classes: Dict[str, List[str]] = defaultdict(list)
-        for r in novel[:cap]:
-            expr = r.expression if hasattr(r, "expression") else r["expression"]
-            classes[_canonical_class_key(expr, problem)].append(expr)
-        for key, members in classes.items():
-            rep = min(members, key=_expr_cost)
-            novel_classes.append({
-                "representative": rep,
-                "count": len(members),
-            })
-        novel_classes.sort(key=lambda c: _expr_cost(c["representative"]))
+        with spans.span("report.classing"):
+            cap = max_novel_classes * 10
+            if len(novel) > cap:
+                extra = (f"novel-class grouping covers the first {cap} of "
+                         f"{len(novel)} novel rows")
+                novel_note = f"{novel_note}; {extra}" if novel_note else extra
+            # shortest-first so a cap keeps the most interpretable rows
+            def _elen(r):
+                return len(r.expression if hasattr(r, "expression")
+                           else r["expression"])
+            novel = sorted(novel, key=_elen)
+            classes: Dict[str, List[str]] = defaultdict(list)
+            for r in novel[:cap]:
+                expr = (r.expression if hasattr(r, "expression")
+                        else r["expression"])
+                classes[_canonical_class_key(expr, problem)].append(expr)
+            for key, members in classes.items():
+                rep = min(members, key=_expr_cost)
+                novel_classes.append({
+                    "representative": rep,
+                    "count": len(members),
+                })
+            novel_classes.sort(key=lambda c: _expr_cost(c["representative"]))
 
     return {
         "run_id": run_id,
@@ -157,7 +161,9 @@ def build_report(problem, rows: Optional[List] = None,
         "novel_classes_note": novel_note,
         "family_breakdown": family_breakdown or {},
         "validator": problem.describe(),
-        "stats": [vars(s) for s in (stats or [])],
+        # the spans' events stay in the run's stats
+        "stats": [{k: v for k, v in vars(s).items() if k != "span_events"}
+                  for s in (stats or [])],
     }
 
 
