@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from .enumerator import Candidate, Enumerator
+from .models.laplace_gs import LaplaceProblem
+from .ops import gradcert
 from .ops.interpreter import eval_jets_np, eval_jets_np_many
 from .ops.jets import n_coeffs
 from .parallel import cuda_engine
@@ -54,6 +56,12 @@ from .utils.hashing import FP_MASK, STRUCT_TAG, op_salt, struct_key_for_expr
 # collocation point.
 _CONST64_RTOL = 1e-12
 TILE = 512
+
+# heavy checks whose whole verdict is "reject when u_X == 0 and u_Y == 0",
+# so that ops/gradcert's certificate decides them wherever it certifies a
+# row; force_free and kerr test the axis first, grad_shafranov adds SymPy
+# limits
+_CERTIFIED_CHECKS = frozenset({LaplaceProblem.heavy_checks})
 
 
 def resolve_device(device) -> torch.device:
@@ -1009,8 +1017,11 @@ class DiscoveryEngine:
 
     @spans.traced("finalize")
     def _finalize_pass(self, cand, ev, rel64, f64_tag, depth, st, on_row,
-                       key: int = 0):
-        """Stages 3-4 for a candidate that survived the numeric funnel."""
+                       key: int = 0, certified: bool = False):
+        """Stages 3-4 for a candidate that survived the numeric funnel.
+        ``certified``: the gray worker proved the row not constant
+        (``ops/gradcert``), which decides a heavy check in
+        ``_CERTIFIED_CHECKS`` as SymPy would, without SymPy."""
         verdict, method = self._confirm_symbolic(cand)
         if verdict is False:
             self._add_row(
@@ -1031,13 +1042,18 @@ class DiscoveryEngine:
                             key=key, rel64=rel64)
         st.valid += 1
         if not self.config.defer_heavy_checks:
-            try:
-                with spans.span("heavy_checks"):
-                    hu = self.problem.tape_to_sympy(cand.tape)
-                    h_ok, h_reason = self.problem.heavy_checks(hu)
-            except Exception as e:
-                h_ok, h_reason = False, f"heavy check error: {e}"
-                self.errors += 1
+            if certified:
+                spans.count("heavy.certified")
+                h_ok, h_reason = True, "ok"
+            else:
+                spans.count("heavy.sympy")
+                try:
+                    with spans.span("heavy_checks"):
+                        hu = self.problem.tape_to_sympy(cand.tape)
+                        h_ok, h_reason = self.problem.heavy_checks(hu)
+                except Exception as e:
+                    h_ok, h_reason = False, f"heavy check error: {e}"
+                    self.errors += 1
             row.heavy_is_valid = h_ok
             row.heavy_reason = h_reason
             if not h_ok:
@@ -1049,6 +1065,26 @@ class DiscoveryEngine:
             on_row(row)
 
     @spans.traced("gray.numeric")
+    def _gray_job(self, part):
+        """The gray worker's job for one chunk: the float64 recheck, then
+        the gradient certificate of the rows it passes where that decides
+        the problem's heavy check; ``(const64, finite, relmax, cert)``."""
+        const64, finite, relmax = self._gray_numeric(part)
+        cert = np.zeros(len(part), bool)
+        if (not self.config.defer_heavy_checks
+                and getattr(self.problem.heavy_checks, "__func__", None)
+                in _CERTIFIED_CHECKS):
+            with spans.span("gray.certify"):
+                sel = np.flatnonzero(~const64 & finite
+                                     & (relmax < self.confirm_rtol))
+                if sel.size:
+                    tapes, lengths = self.enumerator.tapes_batch(
+                        [part[j][0].uid for j in sel])
+                    cert[sel] = gradcert.certify(
+                        tapes, lengths, self.problem.consts.values,
+                        self.problem.screen_points)
+        return const64, finite, relmax, cert
+
     def _gray_numeric(self, part):
         """The float64 numeric section of the gray recheck for one chunk —
         a pure function of the candidates, run on the overlap thread."""
@@ -1079,7 +1115,7 @@ class DiscoveryEngine:
             part = self._gray[:chunk]
             del self._gray[:chunk]
             self._gray_done.append(
-                (part, self._gray_pool.submit(self._gray_numeric, part)))
+                (part, self._gray_pool.submit(self._gray_job, part)))
         if st is not None:
             while self._gray_done and self._gray_done[0][1].done():
                 part, fut = self._gray_done.pop(0)
@@ -1089,7 +1125,7 @@ class DiscoveryEngine:
 
     @spans.traced("gray.emit")
     def _emit_gray_part(self, part, res, depth, st, on_row):
-        const64, finite, relmax = res
+        const64, finite, relmax, cert = res
         for j, (cand, ev, key) in enumerate(part):
             if const64[j]:
                 self._add_row(cand, depth, False, self._R_CONST,
@@ -1097,7 +1133,7 @@ class DiscoveryEngine:
             elif finite[j] and relmax[j] < self.confirm_rtol:
                 self._finalize_pass(cand, ev, float(relmax[j]),
                                     "screen+f64", depth, st, on_row,
-                                    key)
+                                    key, bool(cert[j]))
             else:
                 self._add_row(
                     cand, depth, False,
@@ -1111,7 +1147,7 @@ class DiscoveryEngine:
             for i in range(0, len(self._gray), chunk):
                 part = self._gray[i:i + chunk]
                 self._gray_done.append(
-                    (part, self._gray_pool.submit(self._gray_numeric,
+                    (part, self._gray_pool.submit(self._gray_job,
                                                   part)))
             self._gray = []
         done, self._gray_done = self._gray_done, []

@@ -27,7 +27,7 @@ from benchmark.harness import spec
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _RUN = r"""
-import dataclasses, json, sys, tempfile, time
+import dataclasses, json, sqlite3, sys, tempfile, time
 import torch
 torch.set_num_threads(1)
 from pde_engine_tpu_torch.runtime import DiscoveryRun
@@ -45,7 +45,15 @@ with tempfile.TemporaryDirectory() as d:
     finally:
         run.close()
     wall = time.perf_counter() - t0
-res = {"on": spans.ON, "wall_s": wall,
+    con = sqlite3.connect(d + "/run.db")
+    table = [r[0] for r in con.execute(
+        "SELECT name FROM sqlite_master WHERE type='table' "
+        "AND name LIKE 'expressions_%'")][0]
+    heavy_rejects = con.execute(
+        f"SELECT depth, COUNT(*) FROM {table} WHERE heavy_is_valid = 0 "
+        f"GROUP BY depth").fetchall()
+    con.close()
+res = {"on": spans.ON, "wall_s": wall, "heavy_rejects": heavy_rejects,
        "stats": [dataclasses.asdict(s) for s in run.engine.stats],
        "summary_keys": sorted(run.engine.summary()["depths"][0])}
 if not spans.ON:
@@ -82,19 +90,22 @@ SECTIONS = {"keys", "dedup", "register", "verdicts", "rejects", "passers",
 WHERE = {"run": "last", "run.open": "first", "depth": "every",
          "enum": "deep", "device": "deep", "ingest": "deep",
          "gray.flush": "every", "gray.emit": "any", "finalize": "every",
-         "heavy_checks": "every", "match_known": "every", "gray.wait": "any",
+         "heavy_checks": "sympy", "match_known": "every", "gray.wait": "any",
          "db.write": "every", "depth.barrier": "every", "sink.wait": "every",
          "report.index_build": "last", "report": "last",
          "report.families": "last", "report.classing": "last",
-         "run.close": "last", "gray.numeric": "any", "sink.write": "deep"}
-THREADS = {"gray.numeric": "gray_", "sink.write": "sink"}
+         "run.close": "last", "gray.numeric": "any", "sink.write": "deep",
+         "gray.certify": "any"}
+THREADS = {"gray.numeric": "gray_", "sink.write": "sink",
+           "gray.certify": "gray_"}
 TIMERS = [("depth", "seconds"), ("enum", "t_enum"), ("device", "t_device"),
           ("ingest", "t_ingest"), ("gray.flush", "t_gray")]
 READERS = ["heavy_checks_s", "match_known_s", "row_emit_s", "gray_wait_s",
            "gray_worker_s", "sink_wait_s", "sink_write_s",
            "sink_blocked_pct", "db_write_s", "barrier_s", "index_build_s",
            "report_s", "open_close_s", "unspanned_s",
-           "family_pass_s.families", "classing_s.families"]
+           "family_pass_s.families", "classing_s.families",
+           "heavy_certified_pct"]
 
 
 def _run(tmp, depth: int, on: bool):
@@ -142,7 +153,9 @@ def test_each_span_is_recorded_where_its_work_ran(traced, name):
     want = {"every": [True] * len(stats),
             "deep": [False] + [True] * (len(stats) - 1),
             "first": [True] + [False] * (len(stats) - 1),
-            "last": [False] * (len(stats) - 1) + [True]}.get(where)
+            "last": [False] * (len(stats) - 1) + [True],
+            "sympy": [s["counts"].get("heavy.sympy", 0) > 0
+                      for s in stats]}.get(where)
     if want is None:
         assert any(got), name
     else:
@@ -164,7 +177,22 @@ def test_sink_counters(traced):
         assert c["sink.rows"] >= c["sink.batches"] > 0
         assert 0 <= c.get("sink.blocked", 0) <= c["sink.batches"]
         assert c["sink.batches"] == s["spans"]["sink.write"]["n"]
-    assert traced["stats"][0]["counts"] == {}
+    assert set(traced["stats"][0]["counts"]) <= {"heavy.certified",
+                                                 "heavy.sympy"}
+
+
+def test_heavy_counters_cover_the_rows_that_reach_the_checks(traced):
+    """Each depth's ``heavy.certified`` plus ``heavy.sympy`` is its valid
+    rows before the heavy checks demoted any; the certificate decides
+    every row of the first three depths, SymPy some of depth 4."""
+    rejects = dict(traced["heavy_rejects"])
+    for s in traced["stats"]:
+        c = s["counts"]
+        assert c.get("heavy.certified", 0) + c.get("heavy.sympy", 0) == \
+            s["valid"] + rejects.get(s["depth"], 0), s["depth"]
+        assert c.get("heavy.certified", 0) > 0
+    assert [s["counts"].get("heavy.sympy", 0) > 0
+            for s in traced["stats"]] == [False, False, False, True]
 
 
 def test_self_time_within_inclusive_time(traced):
