@@ -68,6 +68,9 @@ TILE = 512
 # limits
 _CERTIFIED_CHECKS = frozenset({LaplaceProblem.heavy_checks})
 
+# _finalize_pass's ``known`` when the caller has not matched the row
+_UNMATCHED = object()
+
 
 def resolve_device(device) -> torch.device:
     """The explicit device of a run.  ``cuda`` without a usable GPU
@@ -394,6 +397,30 @@ class _Passer:
         return bool(self._enum.f_has_var[self.uid])
 
 
+def _fill_exprs(enum: Enumerator, cands) -> None:
+    """Set the display string of each ``_Passer`` of ``cands`` that lacks
+    it, as ``enum.expr_str_of`` spells it: a uid's ``expr_strs`` entry
+    where set, else its string in the native arena, fetched for all such
+    rows by one ``ExprArena.blob`` call; a row with neither keeps the lazy
+    ``expr_str_of``."""
+    todo = [c for c in cands if type(c) is _Passer and c._expr is None]
+    if not todo:
+        return
+    es = enum.expr_strs
+    n_arena = len(enum.arena) if enum.arena is not None else 0
+    fetch = []
+    for c in todo:
+        s = es[c.uid]
+        if s is not None:
+            c._expr = s
+        elif c.uid < n_arena:
+            fetch.append(c)
+    if fetch:
+        blob = enum.arena.blob(np.array([c.uid for c in fetch], np.int64))
+        for c, s in zip(fetch, blob[:-1].decode().split("\x00")):
+            c._expr = s
+
+
 class DiscoveryEngine:
 
     def __init__(self, problem, config: Optional[SearchConfig] = None,
@@ -612,7 +639,9 @@ class DiscoveryEngine:
 
     @staticmethod
     def _ev_at(sr: ScreenResult, j: int):
-        """Per-candidate view of a (numpy) ScreenResult."""
+        """Per-candidate copy of a (numpy) ScreenResult's row: a passer
+        waiting in the gray zone holds its own fingerprint values, not
+        its superbatch's arrays."""
         return {
             "screen_ok": bool(sr.screen_ok[j]),
             "rel_max": float(sr.rel_max[j]),
@@ -620,7 +649,7 @@ class DiscoveryEngine:
             "is_const": bool(sr.is_const[j]),
             "fp": (int(sr.fp_a[j]), int(sr.fp_b[j])),
             "fp_finite": bool(sr.fp_finite[j]),
-            "fp_vals": sr.fp_vals[j],
+            "fp_vals": sr.fp_vals[j].copy(),
         }
 
     # ------------------------------------------------------------------
@@ -647,22 +676,42 @@ class DiscoveryEngine:
                                                       dtype=np.float64)
                     self._known_sympy[name] = self.problem.tape_to_sympy(
                         cand.tape)
+        if self._known_fp:
+            self._known_kv = np.stack(list(self._known_fp.values()))
+            self._known_den = np.abs(self._known_kv) + 1.0
 
-    def _match_known(self, cand: Candidate, fp_vals) -> Optional[str]:
-        """Tolerance match on fingerprint values, gated by an exact SymPy
-        equality check."""
+    def _match_known_rows(self, cands, fp_vals) -> List[Optional[str]]:
+        """The known solution each of ``cands`` is, or None: a tolerance
+        test of the rows' fingerprint values ``fp_vals`` against every
+        known's at once, then, for a row near a known, an exact SymPy
+        equality check, the knowns tried in ``_known_fp``'s order.  A
+        NaN value fails the test (``max`` propagates it)."""
+        out: List[Optional[str]] = [None] * len(cands)
+        if not self._known_fp or not out:
+            return out
         import sympy as sp
-        v = np.asarray(fp_vals, dtype=np.float64)
-        for name, kv in self._known_fp.items():
-            denom = np.abs(kv) + 1.0
-            if np.max(np.abs(v - kv) / denom) < 1e-3:
+        spans.count("known.tested", len(out))
+        v = np.array(fp_vals, dtype=np.float64)
+        near = (np.abs(v[:, None, :] - self._known_kv)
+                / self._known_den).max(axis=-1) < 1e-3
+        rows = np.flatnonzero(near.any(axis=1))
+        if rows.size:
+            spans.count("known.near", int(rows.size))
+        names = list(self._known_fp)
+        for i in rows.tolist():
+            for k in np.flatnonzero(near[i]).tolist():
                 try:
-                    u = self.problem.tape_to_sympy(cand.tape)
-                    if sp.simplify(u - self._known_sympy[name]) == 0:
-                        return name
+                    u = self.problem.tape_to_sympy(cands[i].tape)
+                    if sp.simplify(u - self._known_sympy[names[k]]) == 0:
+                        out[i] = names[k]
+                        break
                 except Exception:
                     continue
-        return None
+        return out
+
+    def _match_known(self, cand: Candidate, fp_vals) -> Optional[str]:
+        """:meth:`_match_known_rows` for one row."""
+        return self._match_known_rows([cand], [fp_vals])[0]
 
     # ------------------------------------------------------------------
     # Stages 2-4
@@ -1050,11 +1099,14 @@ class DiscoveryEngine:
 
     @spans.traced("finalize")
     def _finalize_pass(self, cand, ev, rel64, f64_tag, depth, st, on_row,
-                       key: int = 0, certified: bool = False):
+                       key: int = 0, certified: bool = False,
+                       known=_UNMATCHED):
         """Stages 3-4 for a candidate that survived the numeric funnel.
         ``certified``: the gray worker proved the row not constant
         (``ops/gradcert``), which decides a heavy check in
-        ``_CERTIFIED_CHECKS`` as SymPy would, without SymPy."""
+        ``_CERTIFIED_CHECKS`` as SymPy would, without SymPy.  ``known``:
+        the row's known solution or None, where the caller matched its
+        chunk (:meth:`_match_known_rows`)."""
         verdict, method = self._confirm_symbolic(cand)
         if verdict is False:
             self._add_row(
@@ -1068,8 +1120,9 @@ class DiscoveryEngine:
         else:
             reason = (f"Valid (numeric zero, relres ≈ {rel64:.2e}; "
                       "symbolic confirm skipped)")
-        with spans.span("match_known"):
-            known = self._match_known(cand, ev["fp_vals"])
+        if known is _UNMATCHED:
+            with spans.span("match_known"):
+                known = self._match_known(cand, ev["fp_vals"])
         row = self._add_row(cand, depth, True, reason,
                             f"{f64_tag}+{method}", ev, None, known=known,
                             key=key, rel64=rel64)
@@ -1258,14 +1311,21 @@ class DiscoveryEngine:
     @spans.traced("gray.emit")
     def _emit_gray_part(self, part, res, depth, st, on_row):
         const64, finite, relmax, cert = res
+        ok = ~const64 & finite & (relmax < self.confirm_rtol)
+        _fill_exprs(self.enumerator, [cand for cand, _, _ in part])
+        sel = np.flatnonzero(ok).tolist()
+        with spans.span("match_known"):
+            known = dict(zip(sel, self._match_known_rows(
+                [part[j][0] for j in sel],
+                [part[j][1]["fp_vals"] for j in sel])))
         for j, (cand, ev, key) in enumerate(part):
             if const64[j]:
                 self._add_row(cand, depth, False, self._R_CONST,
                               "screen+f64", ev, on_row, key=key)
-            elif finite[j] and relmax[j] < self.confirm_rtol:
+            elif ok[j]:
                 self._finalize_pass(cand, ev, float(relmax[j]),
                                     "screen+f64", depth, st, on_row,
-                                    key, bool(cert[j]))
+                                    key, bool(cert[j]), known[j])
             else:
                 self._add_row(
                     cand, depth, False,

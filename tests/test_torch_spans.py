@@ -199,7 +199,8 @@ def test_sink_counters(traced):
         assert 0 <= c.get("sink.blocked", 0) <= c["sink.batches"]
         assert c["sink.batches"] == s["spans"]["sink.write"]["n"]
     assert set(traced["stats"][0]["counts"]) <= {
-        "heavy.certified", "heavy.sympy", "const.zero", "const.exact"}
+        "heavy.certified", "heavy.sympy", "const.zero", "const.exact",
+        "known.tested", "known.near"}
 
 
 def test_heavy_counters_cover_the_rows_that_reach_the_checks(traced):
@@ -215,6 +216,21 @@ def test_heavy_counters_cover_the_rows_that_reach_the_checks(traced):
         assert c.get("heavy.certified", 0) > 0
     assert [s["counts"].get("heavy.sympy", 0) > 0
             for s in traced["stats"]] == [False, False, False, False]
+
+
+def test_known_counters_cover_the_rows_that_reach_finalize(traced):
+    """Each depth's ``known.tested`` is its rows that pass the float64
+    recheck, one ``finalize`` each, valid before the heavy checks demoted
+    any; ``known.near``, those of them that SymPy compares with a
+    known."""
+    rejects = dict(traced["heavy_rejects"])
+    for s in traced["stats"]:
+        c = s["counts"]
+        assert c["known.tested"] == s["valid"] + rejects.get(s["depth"], 0) \
+            == s["spans"]["finalize"]["n"]
+        assert 0 <= c.get("known.near", 0) <= c["known.tested"]
+    assert sum(s["counts"].get("known.near", 0) for s in traced["stats"]) \
+        > 0
 
 
 def test_const_zero_counts_the_recheck_constant_rejects(traced):
