@@ -1685,15 +1685,13 @@ def phase_db_resume(d4, rep4, d6, rep6, d11a, rep7a, d11b, rep8a, d11c):
 
 class DepthLaunches:
     """While active, the entry points' launch counts made in each depth
-    of the segmented path (``DiscoveryEngine._run_depth_segmented``; with
-    ``method="_run_depth_per_op"`` the per-op path), by depth, in
-    ``by_depth``."""
+    of the screen path (``DiscoveryEngine._run_depth_screen``, segmented
+    or per-op), by depth, in ``by_depth``."""
 
-    def __init__(self, method: str = "_run_depth_segmented"):
+    def __init__(self):
         from pde_engine_tpu_torch.pipeline import DiscoveryEngine
         self.engine = DiscoveryEngine
-        self.method = method
-        self.orig = getattr(DiscoveryEngine, method)
+        self.orig = DiscoveryEngine._run_depth_screen
         self.by_depth = {}
 
     def __enter__(self):
@@ -1707,11 +1705,11 @@ class DepthLaunches:
             finally:
                 by_depth[depth] = {k: ce.LAUNCHES[k] - before[k]
                                    for k in before}
-        setattr(self.engine, self.method, run_depth)
+        self.engine._run_depth_screen = run_depth
         return self
 
     def __exit__(self, *exc):
-        setattr(self.engine, self.method, self.orig)
+        self.engine._run_depth_screen = self.orig
 
 
 def run_bench(tmp, tag, seed_depth, depth_st, depth_launches, timeout):
@@ -2291,12 +2289,11 @@ def phase_host(tmp, card, c4):
             f"was the first): wall {rep['wall_seconds']:.1f} s")
         stage_lines(rep, card)
     stages = sum(st["seconds"] for st in rep["stats"])
-    steps = ("_run_depth_segmented", "drain_tail", "drain_head",
-             "_ingest_vec", "_gray_maybe_submit", "_emit_gray_part",
-             "_finalize_pass", "_match_known", "_add_row", "on_row",
-             "add_row", "expr_str", "_flush_gray", "on_batch", "on_depth",
-             "route_segmented", "launch", "timed", "_unpack_start",
-             "_unpack_finish")
+    steps = ("_run_depth_screen", "drain", "_ingest_vec",
+             "_gray_maybe_submit", "_emit_gray_part", "_finalize_pass",
+             "_match_known", "_add_row", "on_row", "add_row", "expr_str",
+             "_flush_gray", "on_batch", "on_depth", "route_segmented",
+             "_launch", "_enum_timed", "_unpack_start", "_unpack_finish")
     shares = sorted(((k, sampler.share(k)) for k in sampler.counts
                      if k.split(":")[1] in steps), key=lambda kv: -kv[1])
     say(f"  main thread of fresh run 3, {sampler.samples} stack samples "
@@ -2458,7 +2455,7 @@ def phase_mesh(tmp, card, per_op):
     ref_db, ref_rep = per_op
 
     # (a) --devices 1 through the CLI
-    with DepthLaunches("_run_depth_per_op") as by_depth:
+    with DepthLaunches() as by_depth:
         ce.reset_launch_counts()
         rep_a = run_cli(["--devices", "1", "--no-report-families"],
                         dirs["a"])

@@ -28,8 +28,10 @@ ingests the same rows (``parallel/distributed.py``), and with
 
 from __future__ import annotations
 
+import itertools
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -119,9 +121,10 @@ def _run_operands(kind: str, a_u: np.ndarray, b_u: Optional[np.ndarray],
 
 @dataclass
 class Launch:
-    """One screen-kernel launch of the segmented path, as
-    :func:`route_segmented` lays it out."""
-    kernel: str   # "segmented", "structured" or "tiled"
+    """One screen-kernel launch of a depth: ``universal`` for one op batch
+    of the per-op path, the other kinds as :func:`route_segmented` lays
+    them out."""
+    kernel: str   # "universal", "segmented", "structured" or "tiled"
     rows: int     # rows launched; tiled launches whole 512-row tiles
     # (op name, first row in the launch, a uids, b uids or None), in
     # ingest order
@@ -834,13 +837,14 @@ class DiscoveryEngine:
 
     def _ingest_vec(self, op_name: str, a_u: np.ndarray,
                     b_u: Optional[np.ndarray], sr: ScreenResult,
-                    depth: int, st: DepthStats, on_row=None,
-                    out_s=None, out_f=None, append_cache: bool = True,
-                    on_rows=None, retain_strings: bool = True,
-                    row_offset: int = 0, defer_append_to=None):
+                    depth: int, st: DepthStats, kept: List[int],
+                    on_row=None, on_rows=None, retain_strings: bool = True,
+                    row_offset: int = 0):
         """Vectorized ingestion: dedup, unique registration, verdict
         classification and reject-row emission at array level;
-        per-candidate Python only for screen passers."""
+        per-candidate Python only for screen passers.  The new uniques'
+        rows in the launch, offset by ``row_offset``, go to ``kept``; the
+        caller appends them to the cache."""
         n = a_u.size
         st.candidates += n
 
@@ -881,16 +885,14 @@ class DiscoveryEngine:
                 exprs = [s.decode() for s in blob.split(b"\x00")[:-1]]
         newkeys = keys[new_idx]
         st.unique += k_new
+        with spans.span("ingest.cache_append"):
+            kept.extend((new_idx + row_offset).tolist())
 
         if not persist:
             # a non-writer of a sharded-registry run: verdicts, reject
             # rows and gray rechecks are the writer's; uid assignment and
             # the cache do not depend on them
             self.n_rows += k_new
-            with spans.span("ingest.cache_append"):
-                self._append_cache_section(out_s, out_f, k_new, new_idx,
-                                           append_cache, defer_append_to,
-                                           row_offset)
             return
 
         with spans.span("ingest.verdicts"):
@@ -920,29 +922,13 @@ class DiscoveryEngine:
                 else:
                     self._gray.append((u, ev, key))
 
-        with spans.span("ingest.cache_append"):
-            self._append_cache_section(out_s, out_f, k_new, new_idx,
-                                       append_cache, defer_append_to,
-                                       row_offset)
-
-    def _append_cache_section(self, out_s, out_f, k_new: int,
-                              new_idx: np.ndarray, append_cache: bool,
-                              defer_append_to, row_offset: int):
-        if out_s is None or not k_new or not append_cache:
-            return
-        if defer_append_to is not None:
-            # segmented superbatch: one append per launch, uid order kept
-            defer_append_to.extend((new_idx + row_offset).tolist())
-        else:
-            room = self.cache_row_limit - self.cache.n
-            if room > 0:
-                self._append_kept(out_s, out_f, new_idx[:room].tolist())
-
     _R_CONST = "Zero gradient (constant expression)"
     _R_NONFIN = "Non-finite on safe domain (rejected)"
-    _EV_FMT = ('{"rel_max": %s, "screen_ok": %s, "nonfinite": %s,'
-               ' "is_const": %s, "fp_finite": %s, "n_screen_points": %d,'
-               ' "stage": "screen"}')
+
+    @staticmethod
+    def _r_screen(rel_max: float) -> str:
+        """The reason of a screen-fail reject."""
+        return "PDE residual != 0 (screen relres ≈ %.2e)" % rel_max
 
     @staticmethod
     def _fmt_rel(x: float) -> str:
@@ -954,6 +940,24 @@ class DiscoveryEngine:
         if x == float("-inf"):
             return "-Infinity"
         return "%.6e" % x
+
+    @classmethod
+    def _evidence(cls, rel_max, screen_ok, nonfinite, is_const, fp_finite,
+                  n_points: int, stage: str = "screen",
+                  rel64: Optional[float] = None) -> str:
+        """A row's ``validator_evidence`` JSON: its screen verdict, the
+        stage that decided it and, after a float64 recheck, ``rel_f64``."""
+        return ('{"rel_max": %s, "screen_ok": %s, "nonfinite": %s,'
+                ' "is_const": %s, "fp_finite": %s, "n_screen_points": %d,'
+                ' "stage": "%s"%s}' % (
+                    cls._fmt_rel(rel_max),
+                    "true" if screen_ok else "false",
+                    "true" if nonfinite else "false",
+                    "true" if is_const else "false",
+                    "true" if fp_finite else "false",
+                    n_points, stage,
+                    "" if rel64 is None
+                    else ', "rel_f64": %s' % cls._fmt_rel(rel64)))
 
     def _emit_rejects_bulk(self, uid0, exprs, keys, depth, sr, new_idx,
                            is_const, nonfin, passing, on_row, on_rows):
@@ -1034,15 +1038,9 @@ class DiscoveryEngine:
             elif nonfin_l[local]:
                 reason = self._R_NONFIN
             else:
-                reason = ("PDE residual != 0 (screen relres ≈ %.2e)"
-                          % rel_l[local])
-            ev = self._EV_FMT % (
-                self._fmt_rel(rel_l[local]),
-                "true" if ok_l[local] else "false",
-                "true" if raw_nf_l[local] else "false",
-                "true" if raw_c_l[local] else "false",
-                "true" if fpf_l[local] else "false",
-                nsp)
+                reason = self._r_screen(rel_l[local])
+            ev = self._evidence(rel_l[local], ok_l[local], raw_nf_l[local],
+                                raw_c_l[local], fpf_l[local], nsp)
             e = exprs[local]
             sig = "%016x" % keys_l[local]
             n_emitted += 1
@@ -1086,10 +1084,8 @@ class DiscoveryEngine:
                           "screen", ev, on_row, key=key)
             return
         if not ev["screen_ok"]:
-            self._add_row(
-                cand, depth, False,
-                f"PDE residual != 0 (screen relres ≈ {ev['rel_max']:.2e})",
-                "screen", ev, on_row, key=key)
+            self._add_row(cand, depth, False, self._r_screen(ev["rel_max"]),
+                          "screen", ev, on_row, key=key)
             return
         if ev["rel_max"] < self.config.f64_skip_below:
             self._finalize_pass(cand, ev, ev["rel_max"], "screen",
@@ -1291,22 +1287,33 @@ class DiscoveryEngine:
         relmax = np.where(finite, rel.max(axis=-1), np.inf)
         return const64, finite, relmax
 
-    def _gray_maybe_submit(self, chunk: int = 4096, depth: int = None,
-                           st: DepthStats = None, on_row=None):
-        """Stream gray chunks to the overlap worker during the depth and
-        emit the finished ones on this thread (sqlite and Row bookkeeping
-        are not thread-safe)."""
-        while len(self._gray) >= chunk:
-            part = self._gray[:chunk]
-            del self._gray[:chunk]
+    def _gray_pump(self, chunk: int, depth, st, on_row, final: bool):
+        """Submit the gray rows to the overlap worker in chunks of
+        ``chunk``, a last partial one only when ``final``; then emit the
+        submitted chunks on this thread (sqlite and Row bookkeeping are
+        not thread-safe) in submission order: all of them when ``final``,
+        else those finished before the first that is not (none without
+        ``st``)."""
+        n = len(self._gray)
+        if not final:
+            n -= n % chunk
+        for i in range(0, n, chunk):
+            part = self._gray[i:i + chunk]
             self._gray_done.append(
                 (part, self._gray_pool.submit(self._gray_job, part)))
-        if st is not None:
-            while self._gray_done and self._gray_done[0][1].done():
-                part, fut = self._gray_done.pop(0)
-                with spans.span("gray.wait"):
-                    res = fut.result()
-                self._emit_gray_part(part, res, depth, st, on_row)
+        del self._gray[:n]
+        while st is not None and self._gray_done and (
+                final or self._gray_done[0][1].done()):
+            part, fut = self._gray_done.pop(0)
+            with spans.span("gray.wait"):
+                res = fut.result()
+            self._emit_gray_part(part, res, depth, st, on_row)
+
+    def _gray_maybe_submit(self, chunk: int = 4096, depth: int = None,
+                           st: DepthStats = None, on_row=None):
+        """Stream full gray chunks to the overlap worker during the depth
+        and emit the finished ones."""
+        self._gray_pump(chunk, depth, st, on_row, final=False)
 
     @spans.traced("gray.emit")
     def _emit_gray_part(self, part, res, depth, st, on_row):
@@ -1335,18 +1342,7 @@ class DiscoveryEngine:
     def _flush_gray(self, depth: int, st: DepthStats, on_row=None,
                     chunk: int = 4096):
         """Drain the gray zone in submission order."""
-        if self._gray:
-            for i in range(0, len(self._gray), chunk):
-                part = self._gray[i:i + chunk]
-                self._gray_done.append(
-                    (part, self._gray_pool.submit(self._gray_job,
-                                                  part)))
-            self._gray = []
-        done, self._gray_done = self._gray_done, []
-        for part, fut in done:
-            with spans.span("gray.wait"):
-                res = fut.result()
-            self._emit_gray_part(part, res, depth, st, on_row)
+        self._gray_pump(chunk, depth, st, on_row, final=True)
 
     def _add_row(self, cand, depth, is_valid, reason, method, ev,
                  on_row=None, known=None, key: int = 0,
@@ -1361,18 +1357,9 @@ class DiscoveryEngine:
             sig = f"{((ev['fp'][0] << 32) | ev['fp'][1]) & FP_MASK:016x}"
         else:
             sig = f"{struct_key_for_expr(cand.expr_str):016x}"
-        evidence = (
-            '{"rel_max": %s, "screen_ok": %s, "nonfinite": %s,'
-            ' "is_const": %s, "fp_finite": %s, "n_screen_points": %d,'
-            ' "stage": "%s"%s}' % (
-                self._fmt_rel(ev["rel_max"]),
-                "true" if ev["screen_ok"] else "false",
-                "true" if ev["nonfinite"] else "false",
-                "true" if ev["is_const"] else "false",
-                "true" if ev["fp_finite"] else "false",
-                len(self.problem.screen_points), method,
-                "" if rel64 is None
-                else ', "rel_f64": %s' % self._fmt_rel(rel64)))
+        evidence = self._evidence(
+            ev["rel_max"], ev["screen_ok"], ev["nonfinite"], ev["is_const"],
+            ev["fp_finite"], len(self.problem.screen_points), method, rel64)
         uid = cand.uid
         s_op = int(self.enumerator.u_op[uid])
         s_a = int(self.enumerator.u_a[uid])
@@ -1405,7 +1392,8 @@ class DiscoveryEngine:
         return row
 
     # ------------------------------------------------------------------
-    # Per-op path (use_segmented=False)
+    # The screen path: per-op (use_segmented=False, every mesh) or
+    # segmented superbatches
     # ------------------------------------------------------------------
 
     def _use_segmented(self) -> bool:
@@ -1480,162 +1468,110 @@ class DiscoveryEngine:
                                        for lo, hi in self.mesh.split(n))
         return packed, out_s, out_f
 
-    def _run_depth_per_op(self, depth: int, max_depth: int,
-                          st: DepthStats, on_row, on_rows, on_batch):
-        """One launch per op batch of the enumerator, software-pipelined:
-        batch k+1 is launched before batch k is drained.  Safe: depth-d
-        candidates read only cache rows of depths < d, and the rows
-        appended during depth d are never read within it."""
-        gen = self.enumerator.vector_batches_at_depth(
-            depth, self.config.batch_size, max_parent_uid=self.cache.n)
-        pending = None
+    # the DepthStats field that each depth span's interval is added to
+    _TIMED = {"enum": "t_enum", "device": "t_device", "ingest": "t_ingest",
+              "gray.flush": "t_gray", "depth": "seconds"}
 
-        def drain(item, state):
-            op_name, a_u, b_u, packed, out_s, out_f = item
-            with spans.span("device"):
-                ti = time.perf_counter()
-                sr = self._unpack_finish(*state)
-                st.t_device += time.perf_counter() - ti
-                self.device_seconds += time.perf_counter() - ti
-            with spans.span("ingest"):
-                ti = time.perf_counter()
-                self._ingest_vec(
-                    op_name, a_u, b_u, sr, depth, st, on_row, out_s, out_f,
-                    append_cache=(depth < max_depth or self.cache.n
-                                  < self.config.final_append_limit),
-                    on_rows=on_rows, retain_strings=(depth < max_depth))
-                st.t_ingest += time.perf_counter() - ti
-            self._gray_maybe_submit(depth=depth, st=st, on_row=on_row)
-            if on_batch is not None:
-                on_batch(st)
+    @contextmanager
+    def _timed(self, name: str, st: DepthStats, fetch: bool = False):
+        """Span ``name`` around the block, whose seconds are added to the
+        field of ``st`` that the span times (``_TIMED``) and, for a
+        verdict fetch (``fetch``), to ``device_seconds``."""
+        with spans.span(name):
+            t0 = time.perf_counter()
+            yield
+            dt = time.perf_counter() - t0
+            field = self._TIMED[name]
+            setattr(st, field, getattr(st, field) + dt)
+            if fetch:
+                self.device_seconds += dt
 
-        def head(item):
-            """Fetch the verdicts and gather the passer rows of ``item``;
-            runs before the next launch."""
-            with spans.span("device"):
-                th = time.perf_counter()
-                state = self._unpack_start(item[3], item[5])
-                st.t_device += time.perf_counter() - th
-                self.device_seconds += time.perf_counter() - th
-            return state
-
+    def _enum_timed(self, gen: Iterator, st: DepthStats) -> Iterator:
+        """The items of ``gen``, each one's generation timed as ``enum``."""
         while True:
-            with spans.span("enum"):
-                te = time.perf_counter()
+            with self._timed("enum", st):
                 item = next(gen, None)
-                st.t_enum += time.perf_counter() - te
             if item is None:
-                break
-            op_name, a_u, b_u = item
-            if a_u.size == 0:
-                continue
-            state = head(pending) if pending is not None else None
-            with spans.span("device"):
-                td = time.perf_counter()
-                packed, out_s, out_f = self._eval_op_idx(op_name, a_u, b_u)
-                st.t_device += time.perf_counter() - td
-            if pending is not None:
-                drain(pending, state)
-            pending = (op_name, a_u, b_u, packed, out_s, out_f)
-        if pending is not None:
-            drain(pending, head(pending))
+                return
+            yield item
 
-    # ------------------------------------------------------------------
-    # Segmented superbatch path
-    # ------------------------------------------------------------------
+    def _launches(self, depth: int, st: DepthStats) -> Iterator[Launch]:
+        """The depth's screen launches, lazily: on the segmented path
+        those of :func:`route_segmented` over superbatches, else one
+        ``universal`` launch per non-empty op batch of ``batch_size``."""
+        segmented = self._use_segmented()
+        size = self.config.batch_size
+        if segmented:
+            size = max(TILE, (size // TILE) * TILE)
+        batches = self._enum_timed(self.enumerator.vector_batches_at_depth(
+            depth, size, max_parent_uid=self.cache.n), st)
+        if not segmented:
+            return (Launch("universal", a_u.size, [(op_name, 0, a_u, b_u)])
+                    for op_name, a_u, b_u in batches if a_u.size)
+        return route_segmented(
+            batches, size, self.config.tiled_min_rows,
+            lambda: self.cache.capacity,
+            structured=self.config.use_structured is not False,
+            tiled=self.config.use_tiled is not False)
 
-    def _run_depth_segmented(self, depth: int, max_depth: int,
-                             st: DepthStats, on_row, on_rows, on_batch):
-        """The depth's candidates in the launches of
-        :func:`route_segmented`: mixed-op superbatches (segmented) and
-        the two gather-bypass kinds for run-shaped blocks (structured,
-        tiled), software-pipelined: launch k+1 goes out before launch k
-        is drained."""
-        SUPER = max(TILE, (self.config.batch_size // TILE) * TILE)
+    def _launch(self, ln: Launch, st: DepthStats):
+        """Launch ``ln`` and count it; ``universal`` goes through
+        :meth:`_eval_op_idx`, which counts its own.  Returns
+        ``(packed, out_s, out_f)``."""
+        with self._timed("device", st):
+            if ln.kernel == "universal":
+                op_name, _, a_u, b_u = ln.segs[0]
+                return self._eval_op_idx(op_name, a_u, b_u)
+            out = launch_screen(self._spec, self.cache, ln,
+                                tuple(self._dev(x) for x in ln.index),
+                                self._spoints, self._fpoints)
+        self.candidates_screened += ln.candidates
+        name = f"{ln.kernel}_dispatches"
+        setattr(self, name, getattr(self, name) + 1)
+        self._tally_launch(ln.kernel, ln.rows, [s[2].size for s in ln.segs])
+        return out
 
-        def append_ok():
-            return (depth < max_depth
-                    or self.cache.n < self.config.final_append_limit)
+    def _run_depth_screen(self, depth: int, max_depth: int,
+                          st: DepthStats, on_row, on_rows, on_batch):
+        """The depth's candidates through the screen kernels, one launch
+        of :meth:`_launches` at a time, software-pipelined: launch k's
+        verdicts are fetched, launch k+1 goes out, and then launch k is
+        ingested.  Safe: depth-d candidates read only cache rows of
+        depths < d, and the rows appended during depth d are never read
+        within it."""
 
-        def launch(ln: Launch):
-            with spans.span("device"):
-                td = time.perf_counter()
-                packed, out_s, out_f = launch_screen(
-                    self._spec, self.cache, ln,
-                    tuple(self._dev(x) for x in ln.index), self._spoints,
-                    self._fpoints)
-                st.t_device += time.perf_counter() - td
-            name = f"{ln.kernel}_dispatches"
-            setattr(self, name, getattr(self, name) + 1)
-            self._tally_launch(ln.kernel, ln.rows,
-                               [s[2].size for s in ln.segs])
-            return (ln.segs, packed, out_s, out_f)
-
-        def drain_head(item):
-            """Fetch verdicts + gather the passer rows.  Runs before the
-            next launch."""
-            _, packed, _, out_f = item
-            with spans.span("device"):
-                ti = time.perf_counter()
-                state = self._unpack_start(packed, out_f)
-                st.t_device += time.perf_counter() - ti
-                self.device_seconds += time.perf_counter() - ti
-            return state
-
-        def drain_tail(item, state):
-            d_segs, packed, out_s, out_f = item
-            self.candidates_screened += sum(s[2].size for s in d_segs)
-            with spans.span("device"):
-                ti = time.perf_counter()
-                sr = self._unpack_finish(*state)
-                st.t_device += time.perf_counter() - ti
-                self.device_seconds += time.perf_counter() - ti
-            with spans.span("ingest"):
-                ti = time.perf_counter()
+        def drain(item, fetched):
+            ln, _, out_s, out_f = item
+            with self._timed("device", st, fetch=True):
+                sr = self._unpack_finish(*fetched)
+            with self._timed("ingest", st):
                 kept: List[int] = []
-                for (op_name, start, a_seg, b_seg) in d_segs:
-                    n = a_seg.size
-                    view = ScreenResult(*[f[start:start + n] for f in sr])
+                for op_name, start, a_seg, b_seg in ln.segs:
+                    view = ScreenResult(
+                        *[f[start:start + a_seg.size] for f in sr])
                     self._ingest_vec(
-                        op_name, a_seg, b_seg, view, depth, st, on_row,
-                        out_s, out_f, append_cache=append_ok(),
-                        on_rows=on_rows,
-                        retain_strings=(depth < max_depth),
-                        row_offset=start, defer_append_to=kept)
-                if kept and append_ok():
+                        op_name, a_seg, b_seg, view, depth, st, kept,
+                        on_row, on_rows, retain_strings=(depth < max_depth),
+                        row_offset=start)
+                # one append per launch, in uid order
+                if kept and (depth < max_depth or self.cache.n
+                             < self.config.final_append_limit):
                     room = self.cache_row_limit - self.cache.n
                     if room > 0:
                         self._append_kept(out_s, out_f, kept[:room])
-                st.t_ingest += time.perf_counter() - ti
             self._gray_maybe_submit(depth=depth, st=st, on_row=on_row)
             if on_batch is not None:
                 on_batch(st)
 
-        def timed(gen):
-            while True:
-                with spans.span("enum"):
-                    te = time.perf_counter()
-                    item = next(gen, None)
-                    st.t_enum += time.perf_counter() - te
-                if item is None:
-                    return
-                yield item
-
-        batches = timed(self.enumerator.vector_batches_at_depth(
-            depth, SUPER, max_parent_uid=self.cache.n))
         pending = None
-        for ln in route_segmented(
-                batches, SUPER, self.config.tiled_min_rows,
-                lambda: self.cache.capacity,
-                structured=self.config.use_structured is not False,
-                tiled=self.config.use_tiled is not False):
-            state = drain_head(pending) if pending is not None else None
-            item = launch(ln)
+        for ln in itertools.chain(self._launches(depth, st), [None]):
             if pending is not None:
-                drain_tail(pending, state)
-            pending = item
-        if pending is not None:
-            drain_tail(pending, drain_head(pending))
+                with self._timed("device", st, fetch=True):
+                    fetched = self._unpack_start(pending[1], pending[3])
+            launched = None if ln is None else (ln, *self._launch(ln, st))
+            if pending is not None:
+                drain(pending, fetched)
+            pending = launched
 
     def _run_depth_tape(self, depth: int, st: DepthStats, on_row=None):
         """The tape engine's depth (the JAX engine's ``engine="tape"``
@@ -1650,20 +1586,12 @@ class DiscoveryEngine:
 
         def flush(buf):
             for group, evals, out_s, out_f in self._eval_tape_groups(buf):
-                with spans.span("ingest"):
-                    ti = time.perf_counter()
+                with self._timed("ingest", st):
                     self._ingest(group, evals, depth, st, on_row, out_s,
                                  out_f)
-                    st.t_ingest += time.perf_counter() - ti
 
-        gen = self.enumerator.candidates_at_depth(depth)
-        while True:
-            with spans.span("enum"):
-                te = time.perf_counter()
-                cand = next(gen, None)
-                st.t_enum += time.perf_counter() - te
-            if cand is None:
-                break
+        for cand in self._enum_timed(
+                self.enumerator.candidates_at_depth(depth), st):
             buf.append(cand)
             if len(buf) >= self.config.batch_size:
                 flush(buf)
@@ -1684,16 +1612,12 @@ class DiscoveryEngine:
             if depth > start_depth:
                 # what ended after the depth before: its barrier
                 spans.drain(self.stats[-1])
-            with spans.span("depth"):
-                t0 = time.perf_counter()
-                st = DepthStats(depth=depth)
+            st = DepthStats(depth=depth)
+            with self._timed("depth", st):
                 self._run_depth(depth, max_depth, st, on_row, on_rows,
                                 on_batch)
-                with spans.span("gray.flush"):
-                    tg = time.perf_counter()
+                with self._timed("gray.flush", st):
                     self._flush_gray(depth, st, on_row)
-                    st.t_gray = time.perf_counter() - tg
-                st.seconds = time.perf_counter() - t0
             # the depth's spans, and those that ended before the run's
             # first depth
             spans.drain(st)
@@ -1723,10 +1647,8 @@ class DiscoveryEngine:
                       f"{self.enumerator.count_uniques()} uniques "
                       "exceed the cache budget and are not composed "
                       f"deeper ({fix})", flush=True)
-            run_depth = (self._run_depth_segmented
-                         if self._use_segmented()
-                         else self._run_depth_per_op)
-            run_depth(depth, max_depth, st, on_row, on_rows, on_batch)
+            self._run_depth_screen(depth, max_depth, st, on_row, on_rows,
+                                   on_batch)
 
     def dispatch_counts(self) -> Dict[str, int]:
         return {"segmented": self.segmented_dispatches,
